@@ -1,0 +1,88 @@
+"""Build the port's hand-written CUDA kernels at first use.
+
+Each source in ``csrc/`` is compiled by ``nvcc`` for Hopper
+(``-gencode=arch=compute_90a,code=sm_90a``) into a shared library with a
+plain C interface, which is loaded with ``ctypes``.  No PyTorch header is
+compiled, so a build takes seconds rather than minutes.  The library
+links the CUDA runtime as a shared library (``-cudart=shared``), so it
+binds to the ``libcudart`` that PyTorch has already loaded and shares
+its error state and current device.  The libraries go into ``ray_tpu_torch/_build/``
+(listed in ``.gitignore``) under a name that carries a hash of the source
+and flags, so an edited source is rebuilt.  A build that fails raises
+``RuntimeError`` with nvcc's output.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Tuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-lineinfo", "-cudart=shared", *ARCH_FLAGS]
+# One library per source; the ctypes signature of each exported symbol.
+SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
+    "flash_fwd": {
+        "rtt_flash_fwd": (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+             ctypes.c_void_p],
+            ctypes.c_int),
+        "rtt_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
+}
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """The nvcc of the CUDA toolkit: $CUDA_HOME, then /usr/local/cuda,
+    then PATH."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the port's "
+                           "CUDA kernels are built from source at first use")
+    return found
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is not None:
+            return lib
+        src = CSRC / f"{name}.cu"
+        digest = hashlib.sha256(src.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                   str(src)], capture_output=True, text=True)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed for csrc/{name}.cu (exit "
+                                   f"{proc.returncode}):\n{proc.stdout}"
+                                   f"{proc.stderr}")
+            os.replace(tmp, out)  # atomic: a concurrent build sees all
+        lib = ctypes.CDLL(str(out))
+        for sym, (argtypes, restype) in SIGNATURES[name].items():
+            fn = getattr(lib, sym)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _loaded[name] = lib
+        return lib

@@ -1,0 +1,230 @@
+"""Attention ops (counterpart of ``ray_tpu/ops/attention.py``).
+
+``mha_attention`` dispatches long self-attention on CUDA tensors to the
+hand-written Hopper flash-attention forward (``csrc/flash_fwd.cu``, the
+port of the TPU kernel ``_flash_fwd_kernel``) and everything else to the
+plain PyTorch path.  ``cached_attention`` is the engine's decode path;
+the JAX package runs it as plain XLA, so it stays plain PyTorch here.
+
+On a CPU tensor ``flash_attention`` computes its plain version
+(``flash_attention_reference``); on a CUDA tensor it launches the kernel
+or raises.  There is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30  # large-negative instead of -inf: keeps exp() NaN-free
+# Lq and Lk must be multiples of the kernel's tile (kBlockQ and kBlockK in
+# csrc/flash_fwd.cu, whose C entry refuses other lengths too).
+FLASH_TILE = 64
+# Launches of each hand-written kernel in this process, counted by the
+# wrappers where they launch; chip_smoke.py zeroes and reads them.
+LAUNCHES = {"flash_fwd": 0}
+
+
+def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True,
+                  sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Multi-head attention. q,k,v: [B, L, H, D] -> [B, L, H, D].
+
+    The dispatch conditions are the JAX package's, with "the tensor is on
+    CUDA" in place of "the backend is not the CPU".  The length crossover
+    (lq >= 1024, or a score matrix over 512 MiB) was measured on a TPU and
+    is kept so that the same calls reach the kernel; the H100's own
+    crossover is in PERF.md.  A kernel failure raises: there is no
+    fallback to the plain path."""
+    b, lq, h, _ = q.shape
+    lk = k.shape[1]
+    score_bytes = b * h * lq * lk * q.element_size()
+    use_flash = (q.is_cuda
+                 and lq % 128 == 0 and lk % 128 == 0
+                 and (lq >= 1024 or score_bytes > 512 * 1024 * 1024)
+                 # The flash mask is diagonal-aligned; the plain path's is
+                 # bottom-right-aligned for lq != lk (decode).
+                 and (not causal or lq == lk))
+    if use_flash:
+        return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+    return _plain_attention(q, k, v, causal, sm_scale)
+
+
+def _plain_attention(q, k, v, causal, sm_scale):
+    """Counterpart of ``_xla_attention``: scores in the storage dtype, fp32
+    softmax, causal mask bottom-right aligned (``tril(k=lk-lq)``)."""
+    d = q.shape[-1]
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if causal:
+        lq, lk = q.shape[1], k.shape[1]
+        mask = torch.ones(lq, lk, dtype=torch.bool,
+                          device=q.device).tril(lk - lq)
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s.float(), dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def cached_attention(q: torch.Tensor, k_new: torch.Tensor,
+                     v_new: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_lengths: torch.Tensor,
+                     sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Attention for the incremental-decode path: T new tokens attend to a
+    per-sequence cached prefix plus themselves (causally).
+
+    q, k_new, v_new: [B, T, H(q/kv), D], at absolute positions
+    ``cache_lengths[b] + t``.  k_cache, v_cache: [B, S, Hkv, D], of which
+    only the first ``cache_lengths[b]`` rows are valid (the rest is
+    masked, so gathered pages need no zeroing).  With Hkv < H the
+    key/value heads are repeated GQA-style after the concatenation.
+    S == 0 is plain causal self-attention (the prefill case)."""
+    b, t, h, d = q.shape
+    s = k_cache.shape[1]
+    k = torch.cat([k_cache, k_new], dim=1) if s else k_new
+    v = torch.cat([v_cache, v_new], dim=1) if s else v_new
+    if k.shape[2] != h:  # GQA: expand kv heads to query heads
+        rep = h // k.shape[2]
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale  # [B,H,T,S+T]
+    j = torch.arange(s + t, device=q.device)
+    i = torch.arange(t, device=q.device)
+    # Key j is visible to query i when it is a valid cache row
+    # (j < len[b]) or a causally-earlier new token (j - S <= i).
+    mask = torch.where(j[None, None, :] < s,
+                       j[None, None, :] < cache_lengths[:, None, None],
+                       (j[None, None, :] - s) <= i[None, :, None])
+    scores = scores.masked_fill(~mask[:, None], NEG_INF)
+    p = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention forward: the Hopper kernel and its plain version.
+# ---------------------------------------------------------------------------
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, sm_scale: Optional[float] = None,
+                    return_lse: bool = False):
+    """Fused attention forward. q: [B, Lq, H, D], k, v: [B, Lk, H, D] ->
+    O [B, Lq, H, D] (and, with ``return_lse``, the fp32 row log-sum-exp
+    [B*H, Lq], row ``b*H + h``).
+
+    The causal mask is diagonal-aligned (row >= col), as in the TPU
+    kernel.  Raises ``ValueError`` for a length that is not a multiple of
+    the kernel's tile (``FLASH_TILE``) and for causal with lq != lk.
+
+    CPU tensors take ``flash_attention_reference``; CUDA tensors launch
+    ``csrc/flash_fwd.cu`` (bf16 or fp32, D in {64, 128}, last dimension
+    contiguous) or raise.  The backward kernels are the next slice's work:
+    on CUDA, inputs that require a gradient raise ``NotImplementedError``.
+    """
+    _check_qkv(q, k, v)
+    lq, lk = q.shape[1], k.shape[1]
+    if lq % FLASH_TILE or lk % FLASH_TILE:
+        raise ValueError(f"sequence lengths ({lq},{lk}) must be multiples "
+                         f"of the kernel's tile ({FLASH_TILE})")
+    if causal and lq != lk:
+        # The kernel's causal mask is rows >= cols (self-attention); the
+        # plain path bottom-right-aligns the triangle for lq != lk.
+        raise ValueError(f"causal flash attention requires lq == lk (got "
+                         f"{lq} vs {lk}); use the plain path for "
+                         f"decode-style windows")
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    devices = {q.device.type, k.device.type, v.device.type}
+    if devices == {"cpu"}:
+        return flash_attention_reference(q, k, v, causal, scale, return_lse)
+    if devices != {"cuda"} or len({q.device, k.device, v.device}) != 1:
+        raise ValueError(f"q, k, v must be on one CUDA device or all on the "
+                         f"CPU (got {q.device}, {k.device}, {v.device})")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise NotImplementedError(
+            "the flash-attention backward kernels (the ports of "
+            "_flash_dq_kernel and _flash_dkv_kernel) come with the "
+            "training slice; call under torch.no_grad() until then")
+    return _flash_fwd_cuda(q, k, v, causal, scale, return_lse)
+
+
+def _check_qkv(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be [B, L, H, D]")
+    if k.shape != v.shape or q.shape[0] != k.shape[0] or \
+            q.shape[2:] != k.shape[2:]:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _flash_fwd_cuda(q, k, v, causal, scale, return_lse):
+    from ray_tpu_torch.ops import _build
+
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise ValueError(f"the flash kernel takes bf16 or fp32 q, k, v of "
+                         f"one dtype (got {q.dtype}, {k.dtype}, {v.dtype})")
+    if d not in (64, 128):
+        raise ValueError(f"the flash kernel takes head_dim 64 or 128, "
+                         f"got {d}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        # The kernel reads 4 elements at a time along D: the last dim must
+        # be contiguous and the other strides and the base 4-aligned.
+        if x.stride(3) != 1 or any(x.stride(i) % 4 for i in range(3)) or \
+                x.data_ptr() % (4 * x.element_size()):
+            raise ValueError(f"{name}: the last dim must be contiguous and "
+                             f"the other strides and the base pointer "
+                             f"multiples of 4 elements (strides "
+                             f"{x.stride()})")
+    lib = _build.load("flash_fwd")
+    out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b * h, lq), dtype=torch.float32,
+                      device=q.device) if return_lse else None
+    strides = (ctypes.c_longlong * 9)(
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.rtt_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
+            _DTYPE_CODES[q.dtype], b, h, lq, lk, d, strides, float(scale),
+            int(causal), stream)
+    if err != 0:
+        msg = ("arguments the kernel does not take" if err == -1 else
+               lib.rtt_cuda_error_string(err).decode())
+        raise RuntimeError(f"flash_fwd launch failed ({err}): {msg}")
+    LAUNCHES["flash_fwd"] += 1
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, causal: bool = True,
+                              sm_scale: Optional[float] = None,
+                              return_lse: bool = False):
+    """The plain PyTorch version of the flash kernel: the same O and LSE,
+    with the same diagonal-aligned causal mask, computed in fp32 over the
+    whole score matrix.  Fully-masked rows give O = 0, as the kernel's
+    ``l`` floor does."""
+    b, lq, h, d = q.shape
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        lk = k.shape[1]
+        rows = torch.arange(lq, device=q.device)[:, None]
+        cols = torch.arange(lk, device=q.device)[None, :]
+        s = s.masked_fill(rows < cols, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = p.masked_fill(s <= NEG_INF / 2, 0.0)
+    l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhqk,bkhd->bqhd", p / l_safe, v.float()).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = (m + torch.log(l_safe))[..., 0].reshape(b * h, lq)
+    return out, lse

@@ -1,0 +1,69 @@
+"""Package-wide rules of the PyTorch/CUDA port.
+
+Purity: ``ray_tpu_torch/`` and ``chip_smoke.py`` import no JAX, flax or
+optax and nothing of ``ray_tpu`` (the machine with the card has no JAX).
+Device: an entry point called without ``device=`` runs on CUDA, and where
+there is no CUDA it raises instead of running on the CPU."""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
+
+
+def _port_sources():
+    files = sorted((ROOT / "ray_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    return files
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", None)) in (
+                    "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value).split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_nothing_of_ray_tpu(path):
+    assert path.exists(), path
+    bad = [(root, line) for root, line in _imported_roots(path)
+           if root in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_entry_points_without_device_raise_when_there_is_no_cuda():
+    from ray_tpu_torch import resolve_device
+    from ray_tpu_torch.serve import LLMEngine, LLMServer, NaiveLM, build_model
+
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    cpu_model = build_model("gpt2", seed=0, device="cpu")
+    calls = [lambda: resolve_device(), lambda: resolve_device("cuda"),
+             lambda: build_model("gpt2", seed=0),
+             lambda: LLMEngine(cpu_model, start=False),
+             lambda: NaiveLM(cpu_model, width=64),
+             lambda: LLMServer("gpt2", seed=0)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+
+
+def test_engine_refuses_a_model_on_another_device():
+    from ray_tpu_torch.serve import LLMEngine, build_model
+
+    model = build_model("gpt2", seed=0, device="cpu")
+    with pytest.raises(ValueError, match="model is on"):
+        LLMEngine(model, device="meta", start=False)
