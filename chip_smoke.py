@@ -2,13 +2,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's hand-written kernels from ``ray_tpu_torch/ops/csrc``,
-holds each against its plain PyTorch version on the card, then drives the
-port's main path: GPT-2 small (random weights from a seed) served through
-``LLMServer`` (the paged-KV ``LLMEngine``), token-identical in fp32 to
-``NaiveLM(width=1024)``, whose full-context forwards run the flash
-kernel in every layer; then the same requests in bf16.  Every phase
-raises on failure and nothing is caught, so any failure exits non-zero.
+Builds the port's hand-written kernels from ``ray_tpu_torch/ops/csrc``
+(the flash-attention forward, and its dq and dkv backward), holds each
+against its plain PyTorch version on the card, then drives the port's
+two main paths with random weights from a seed:
+
+- serving: GPT-2 small through ``LLMServer`` (the paged-KV
+  ``LLMEngine``), token-identical in fp32 to ``NaiveLM(width=1024)``,
+  whose full-context forwards run the flash forward in every layer; then
+  the same requests in bf16;
+- training: GPT-2 small steps (bf16 compute over fp32 parameters,
+  ``adamw(3e-4)``, ``make_train_step``) at the JAX bench's two shapes,
+  B=16 x S=1024 and B=4 x S=4096, every layer running the forward with
+  the LSE and both backward kernels; then one fp32 step of a 2-layer
+  GPT-2 small on the card against the same step on the CPU.
+
+Then it times each kernel beside its bound, its plain version and
+PyTorch's SDPA.  Every phase raises on failure and nothing is caught, so
+any failure exits non-zero.
 
 The line before the last is the card's name and power limit, as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -30,9 +41,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ray_tpu_torch.models import gpt2_loss_fn
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as attn
 from ray_tpu_torch.serve import LLMServer, NaiveLM, build_model
+from ray_tpu_torch.train import adamw, make_train_step
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s and
 # operations/s by input type.  The bound of a call is the larger of its
@@ -60,6 +73,40 @@ NEW_TOKENS = 32
 # bf16 rounding (2^-8 relative per op) on logits of scale ~1; the bound is
 # 5% of the largest fp32 logit.
 BF16_LOGITS_REL = 0.05
+# Backward kernels against flash_attention_backward_reference on the same
+# (q, k, v, O, LSE, dO).  fp32: max |dX| <= 1e-4, as for O; the gradients
+# of these random inputs are O(1-10) and differ only by summation order
+# (~1e-6).  bf16: in each (b, l, h) row, |dX| <= 2^-5 of the row's
+# largest |dX_ref|.  Both round dS (and P for dV) to bf16 at the same
+# points, so an element of dS or P can differ by one bf16 ulp only where
+# the two fp32 sums straddle a rounding boundary (a 2^-8 relative change
+# of one term of dX's sum); then both round dX to bf16, where they can
+# land one ulp (at most 2^-7 of the row's largest |dX|) apart.  The bound
+# is four such ulps.  A row whose gradient cancels to ~0 (dq's first
+# causal row: P = 1 and dP = Delta up to rounding) holds only rounding
+# noise, so the denominator is floored at 2^-8 of the tensor's largest
+# |dX_ref|.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
+# The fp32 kernel gradients against torch.autograd through
+# flash_attention_reference (softmax materialised, no LSE recompute):
+# the same function in other fp32 orders, so the fp32 atol again.
+AUTOGRAD_ATOL = 1e-4
+# Training: the JAX bench's two GPT-2 small shapes (bench.py:210 and
+# :270), warm-up step then timed steps.
+TRAIN_SHAPES = ((16, 1024, 10), (4, 4096, 5))  # (B, S, timed steps)
+LN_VOCAB = float(np.log(50257))
+FIRST_LOSS_SLACK = 0.5
+# One fp32 step of a 2-layer GPT-2 small, card (the three kernels) against
+# CPU (the plain attention path), TF32 off.  The loss is a mean over 1023
+# positions of fp32 cross-entropies: rtol 1e-5.  A gradient is a sum over
+# the 1024 tokens (and, for wte, over the 50257 logits of the tied head)
+# taken in other orders on the two devices: fp32 rounding of such sums
+# leaves a relative error of ~sqrt(n) * 2^-24 <= 1.4e-5 per element at
+# worst, and a norm-wise error below that; each parameter's gradient is
+# held to a relative norm error of 1e-4, ~7x that worst case.
+FP32_STEP_LAYERS = 2
+FP32_LOSS_RTOL = 1e-5
+FP32_GRAD_REL = 1e-4
 
 
 def log(*args):
@@ -88,13 +135,34 @@ def cuda_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def flash_bound(q, causal) -> tuple:
-    """Least time (ms) for the flash forward on these inputs: Q, K, V read
-    once and O written once, against QK^T and PV over the visible pairs."""
+def flash_bound(q, causal, kernel="fwd", with_lse=False) -> tuple:
+    """Least time (ms) for a flash kernel on these self-attention inputs
+    (lq == lk), over the visible (q, k) pairs, each input read once and
+    each output written once:
+
+    - fwd: Q, K, V read, O (and the fp32 LSE) written; QK^T and PV, 4*D
+      operations a pair;
+    - dq: Q, K, V, dO, LSE and Delta read, dQ written; QK^T, dO V^T and
+      dS K, 6*D a pair;
+    - dkv: the same inputs, dK and dV written; QK^T, dO V^T, P^T dO and
+      dS^T Q, 8*D a pair;
+    - bwd: the backward function itself, whichever kernels compute it:
+      Q, K, V, O, dO and LSE read, dQ, dK and dV written; QK^T, dO V^T,
+      P^T dO, dS K and dS^T Q, 10*D a pair (dq + dkv recompute S and dP,
+      so their two bounds add to more than this one).
+
+    Returns (ms, "bytes" or "operations")."""
     b, lq, h, d = q.shape
-    nbytes = 4 * q.numel() * q.element_size()
+    tensor_bytes = q.numel() * q.element_size()
+    row_bytes = b * h * lq * 4  # one fp32 value per row (LSE, Delta)
+    tensors, rows, per_pair = {
+        "fwd": (4, int(with_lse), 4),
+        "dq": (5, 2, 6),
+        "dkv": (6, 2, 8),
+        "bwd": (8, 1, 10)}[kernel]
+    nbytes = tensors * tensor_bytes + rows * row_bytes
     pairs = lq * (lq + 1) // 2 if causal else lq * lq
-    ops = 2 * 2 * b * h * pairs * d
+    ops = per_pair * b * h * pairs * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[q.dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
@@ -109,6 +177,23 @@ def kernel_error(o, o_ref) -> float:
         return diff.max().item()
     row = o_ref.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
     return (diff / row).max().item()
+
+
+def bwd_error(g, ref) -> float:
+    """The error that ``BWD_TOL`` bounds: max |dX| in fp32; in bf16, |dX|
+    over the largest |dX_ref| of its row (over D), that denominator
+    floored at 2^-8 of the tensor's largest |dX_ref|."""
+    diff = (g.float() - ref.float()).abs()
+    if g.dtype == torch.float32:
+        return diff.max().item()
+    ref = ref.float().abs()
+    row = ref.amax(-1, keepdim=True).clamp_min(2.0 ** -8 * ref.max())
+    return (diff / row).max().item()
+
+
+def zero_launches():
+    for name in attn.LAUNCHES:
+        attn.LAUNCHES[name] = 0
 
 
 def fused_qkv(b, length, h, d, dtype, gen):
@@ -138,10 +223,18 @@ def phase_device():
 
 
 def phase_build():
-    t0 = time.perf_counter()
-    _build.load("flash_fwd")
-    log(f"[build] flash_fwd: {time.perf_counter() - t0:.1f} s; CUDA "
-        f"runtime(s) in the process: {cudart_libs()}")
+    """Build every kernel source, one after the other, and check that the
+    libraries bind to the one CUDA runtime PyTorch loaded."""
+    times = []
+    for name in _build.SIGNATURES:
+        t0 = time.perf_counter()
+        _build.load(name)
+        times.append(f"{name} {time.perf_counter() - t0:.1f} s")
+    libs = cudart_libs()
+    log(f"[build] {', '.join(times)}; CUDA runtime(s) in the process: "
+        f"{libs}")
+    if len(libs) != 1:
+        raise AssertionError(f"expected one libcudart, found {libs}")
 
 
 def phase_kernel_grid():
@@ -197,6 +290,82 @@ def phase_kernel_grid():
     log("[kernel] both refusals raise ValueError")
 
 
+def _bwd_case(q, k, v, causal, gen):
+    """(dq, dk, dv) through _FlashAttention (the kernels) and from
+    flash_attention_backward_reference on the same (q, k, v, O, LSE,
+    dO)."""
+    d_out = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out, lse = attn.flash_attention(*leaves, causal=causal, return_lse=True)
+    out.backward(d_out)
+    with torch.no_grad():
+        want = attn.flash_attention_backward_reference(
+            q, k, v, out.detach(), lse, d_out, causal)
+    torch.cuda.synchronize()
+    return [x.grad for x in leaves], want, out.detach(), d_out
+
+
+def phase_kernel_bwd_grid():
+    """The dq and dkv kernels (through _FlashAttention's backward) against
+    flash_attention_backward_reference over the grid, in both layouts,
+    plus non-causal lq != lk each way; then the fp32 kernel gradients
+    against torch.autograd of flash_attention_reference."""
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    n = 0
+
+    def check(got, want, what):
+        nonlocal n
+        for g, ref, name in zip(got, want, ("dq", "dk", "dv")):
+            err = bwd_error(g, ref)
+            if not (g.dtype == ref.dtype and g.shape == ref.shape
+                    and err <= BWD_TOL[g.dtype]):
+                raise AssertionError(f"{name} kernel disagrees ({what}): "
+                                     f"error {err:.3g}")
+            worst[g.dtype] = max(worst[g.dtype], err)
+        n += 1
+
+    for b, length, d, dtype in itertools.product(
+            (1, 4), (128, 1024, 2048), (64, 128),
+            (torch.bfloat16, torch.float32)):
+        fused = fused_qkv(b, length, 12, d, dtype, gen)
+        for layout, causal in itertools.product(
+                ("contiguous", "fused_qkv"), (True, False)):
+            q, k, v = fused if layout == "fused_qkv" else \
+                [x.contiguous() for x in fused]
+            got, want, _, _ = _bwd_case(q, k, v, causal, gen)
+            check(got, want, f"B={b} L={length} D={d} {str(dtype)[6:]} "
+                  f"{layout} causal={causal}")
+    for lq, lk in ((1024, 2048), (2048, 1024)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(1, lq, 12, 64, device="cuda",
+                            generator=gen).to(dtype)
+            k, v = (torch.randn(1, lk, 12, 64, device="cuda",
+                                generator=gen).to(dtype) for _ in "kv")
+            got, want, _, _ = _bwd_case(q, k, v, False, gen)
+            check(got, want, f"lq={lq} lk={lk} {str(dtype)[6:]} "
+                  f"non-causal")
+    log(f"[kernel-bwd] flash_dq, flash_dkv == reference on {n} cases; "
+        f"worst fp32 max |dX| {worst[torch.float32]:.3g} (atol "
+        f"{BWD_TOL[torch.float32]}); worst bf16 |dX| / row max |dX_ref| "
+        f"{worst[torch.bfloat16]:.3g} (bound "
+        f"{BWD_TOL[torch.bfloat16]:.3g})")
+    # Independent of the LSE-recompute design: autograd through the
+    # plain forward, fp32, one shape per D.
+    for d in (64, 128):
+        q, k, v = fused_qkv(2, 1024, 12, d, torch.float32, gen)
+        got, _, _, d_out = _bwd_case(q, k, v, True, gen)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        attn.flash_attention_reference(*leaves, causal=True).backward(d_out)
+        errs = [(g - x.grad).abs().max().item()
+                for g, x in zip(got, leaves)]
+        log(f"[kernel-bwd] fp32 kernel vs torch.autograd of the plain "
+            f"forward, 2x1024x12x{d} causal fused: max |d(dq, dk, dv)| "
+            f"{max(errs):.3g} (atol {AUTOGRAD_ATOL})")
+        if not max(errs) <= AUTOGRAD_ATOL:
+            raise AssertionError(f"kernel gradients != autograd: {errs}")
+
+
 def _requests(vocab):
     rng = np.random.default_rng(SEED)
     return [{"tokens": [int(t) for t in rng.integers(0, vocab, size=n)],
@@ -242,7 +411,7 @@ def phase_fp32_slice() -> int:
     naive = NaiveLM(model, width=1024)
     requests = _requests(model.config.vocab_size)
     try:
-        attn.LAUNCHES["flash_fwd"] = 0
+        zero_launches()
         outs, seconds = serve(server, requests)
         engine_launches = attn.LAUNCHES["flash_fwd"]
         st = server.stats()
@@ -309,6 +478,109 @@ def phase_bf16_slice():
     return outs
 
 
+def phase_train(card) -> dict:
+    """GPT-2 small training steps at the JAX bench's two shapes: bf16
+    compute over fp32 parameters, adamw(3e-4), the same seeded ids every
+    step (bench.py's synthetic branch).  One warm-up step, then timed
+    steps ended by one device read of the last loss (bench.py:143-148).
+    Returns the launches of each kernel in the timed windows."""
+    launches = {}
+    for b, length, iters in TRAIN_SHAPES:
+        tag = f"B={b} S={length}"
+        model = build_model("gpt2", {"tiny": False,
+                                     "max_position_embeddings":
+                                         max(1024, length)}, seed=SEED)
+        cfg = model.config
+        step = make_train_step(model, adamw(model.parameters(), 3e-4),
+                               gpt2_loss_fn)
+        ids = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, size=(b, length))).to("cuda")
+        batch = {"input_ids": ids}
+        per_step = {name: cfg.num_layers for name in attn.LAUNCHES}
+        zero_launches()
+        first = step(batch).item()
+        if attn.LAUNCHES != per_step:
+            raise AssertionError(f"[train] {tag} warm-up step launched "
+                                 f"{attn.LAUNCHES}, expected {per_step}")
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        losses = [step(batch) for _ in range(iters)]
+        last = losses[-1].item()  # the one device read: the barrier
+        seconds = time.perf_counter() - t0
+        counted = dict(attn.LAUNCHES)
+        launches[tag] = counted
+        want = {name: n * iters for name, n in per_step.items()}
+        if counted != want:
+            raise AssertionError(f"[train] {tag}: {iters} steps launched "
+                                 f"{counted}, expected {want}")
+        losses = [first] + torch.stack(losses).tolist()
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"[train] {tag}: losses {losses}")
+        if abs(first - LN_VOCAB) > FIRST_LOSS_SLACK:
+            raise AssertionError(f"[train] {tag}: first loss {first:.4f} "
+                                 f"not within {FIRST_LOSS_SLACK} of ln "
+                                 f"50257 = {LN_VOCAB:.4f}")
+        if not last < first:
+            raise AssertionError(f"[train] {tag}: loss did not fall "
+                                 f"({first:.4f} -> {last:.4f})")
+        n_params = sum(p.numel() for p in model.parameters())
+        flops_per_token = (6 * n_params + 12 * cfg.num_layers
+                           * cfg.hidden_size * length)
+        tokens_per_s = iters * b * length / seconds
+        mfu = tokens_per_s * flops_per_token / PEAK_OPS_PER_S[torch.bfloat16]
+        log(f"[train] {card} | GPT-2 small {tag} bf16/fp32-params adamw: "
+            f"{iters} steps in {seconds:.3f} s = "
+            f"{seconds / iters * 1e3:.1f} ms/step, {tokens_per_s:.0f} "
+            f"tokens/s, MFU {mfu:.4f} (N={n_params}, "
+            f"{flops_per_token / 1e9:.3f} GFLOP/token, bf16 peak); loss "
+            f"{' '.join(f'{x:.4f}' for x in losses)}; launches per step "
+            f"{per_step}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        del model, step, losses
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_fp32():
+    """One fp32 step of a 2-layer GPT-2 small (full width), B=1, S=1024,
+    TF32 off: on the card (attention through the three kernels) and on
+    the CPU copy of the same weights (mha_attention takes the plain path
+    by device).  Loss and every parameter's gradient compared."""
+    kw = {"tiny": False, "dtype": torch.float32,
+          "num_layers": FP32_STEP_LAYERS}
+    ids = np.random.default_rng(SEED + 4).integers(0, 50257, size=(1, 1024))
+    losses, grads = {}, {}
+    for device in ("cuda", "cpu"):
+        model = build_model("gpt2", kw, seed=SEED, device=device)
+        zero_launches()
+        loss = gpt2_loss_fn(model, {"input_ids":
+                                    torch.from_numpy(ids).to(device)})
+        loss.backward()
+        if device == "cuda":
+            want = {name: FP32_STEP_LAYERS for name in attn.LAUNCHES}
+            if attn.LAUNCHES != want:
+                raise AssertionError(f"[train-fp32] launches "
+                                     f"{attn.LAUNCHES}, expected {want}")
+        losses[device] = loss.item()
+        grads[device] = {n: p.grad.detach().cpu()
+                         for n, p in model.named_parameters()}
+    rel = {n: ((g - grads["cpu"][n]).norm()
+               / grads["cpu"][n].norm().clamp_min(1e-30)).item()
+           for n, g in grads["cuda"].items()}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    log(f"[train-fp32] 2-layer GPT-2 small B=1 S=1024 fp32, card vs CPU: "
+        f"loss {losses['cuda']:.7f} vs {losses['cpu']:.7f} (rel "
+        f"{loss_rel:.3g}, bound {FP32_LOSS_RTOL}); worst gradient relative "
+        f"norm error {rel[worst]:.3g} ({worst}; bound {FP32_GRAD_REL}) "
+        f"over {len(rel)} parameters")
+    if not loss_rel <= FP32_LOSS_RTOL:
+        raise AssertionError("[train-fp32] losses differ")
+    if not rel[worst] <= FP32_GRAD_REL:
+        raise AssertionError(f"[train-fp32] gradients differ: {rel}")
+
+
 def phase_timing(card) -> dict:
     """Kernel, plain version and SDPA at the path's shape and layout (bf16
     causal, q/k/v the views of a fused QKV output, back-to-back launches,
@@ -349,21 +621,159 @@ def phase_timing(card) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_ms}
 
 
+def phase_timing_bwd(card) -> dict:
+    """At each training shape (bf16, causal, q/k/v the views of a fused
+    QKV output): the forward with the LSE held against the plain forward
+    (O and LSE), dq and dkv held against the plain backward, then timed:
+    dq, dkv and the two together, the forward with the LSE, the plain
+    forward and backward, and SDPA's forward and backward (fwd+bwd minus
+    fwd, timed as a yardstick, never called by the port), each kernel
+    beside its bound.  Returns, per kernel, its JSON fields at each
+    shape."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    by_shape = {name: {} for name in ("flash_fwd", "flash_dq", "flash_dkv")}
+    for b, length, _ in TRAIN_SHAPES:
+        shape = f"{b}x12x{length}x64"
+        q, k, v = fused_qkv(b, length, 12, 64, torch.bfloat16, gen)
+        d_out = torch.randn(q.shape, device="cuda",
+                            generator=gen).to(torch.bfloat16)
+        scale = 64 ** -0.5
+        with torch.no_grad():
+            out, lse = attn._flash_fwd_cuda(q, k, v, True, scale, True)
+            out_ref, lse_ref = attn.flash_attention_reference(
+                q, k, v, True, scale, True)
+            err_fwd = kernel_error(out, out_ref)
+            err_lse = (lse - lse_ref).abs().max().item()
+            if not (err_fwd <= TOL[torch.bfloat16] and err_lse <= LSE_ATOL):
+                raise AssertionError(
+                    f"flash_fwd with LSE disagrees with the plain forward "
+                    f"at {shape}: |dO| / row max |O_ref| {err_fwd:.3g} "
+                    f"(bound {TOL[torch.bfloat16]:.3g}), |dLSE| "
+                    f"{err_lse:.3g} (atol {LSE_ATOL})")
+            del out_ref, lse_ref
+            ops = attn._bwd_operands(q, k, v, out, lse, d_out, True)
+            dq = attn._flash_dq_cuda(q, k, v, *ops, True, scale)
+            dk, dv = attn._flash_dkv_cuda(q, k, v, *ops, True, scale)
+            want = attn.flash_attention_backward_reference(
+                q, k, v, out, lse, d_out, True)
+            err_dq = (dq.float() - want[0].float()).abs().max().item()
+            err_dkv = max((g.float() - r.float()).abs().max().item()
+                          for g, r in zip((dk, dv), want[1:]))
+            equal = sum((g == r).sum().item() for g, r in
+                        zip((dq, dk, dv), want)) / (3 * q.numel())
+            for g, r in zip((dq, dk, dv), want):
+                if not bwd_error(g, r) <= BWD_TOL[torch.bfloat16]:
+                    raise AssertionError(f"backward kernel disagrees at "
+                                         f"{shape}")
+            del dq, dk, dv, want
+            t = {
+                "dq": cuda_ms(lambda: attn._flash_dq_cuda(
+                    q, k, v, *ops, True, scale), iters=20),
+                "dkv": cuda_ms(lambda: attn._flash_dkv_cuda(
+                    q, k, v, *ops, True, scale), iters=20),
+                "bwd": cuda_ms(lambda: attn._flash_bwd_cuda(
+                    q, k, v, out, lse, d_out, True, scale), iters=20),
+                "fwd_lse": cuda_ms(lambda: attn._flash_fwd_cuda(
+                    q, k, v, True, scale, True), iters=20),
+                "plain_fwd": cuda_ms(
+                    lambda: attn.flash_attention_reference(
+                        q, k, v, True, scale, True), iters=5, warmup=2),
+                "plain_bwd": cuda_ms(
+                    lambda: attn.flash_attention_backward_reference(
+                        q, k, v, out, lse, d_out, True), iters=5,
+                    warmup=2),
+            }
+        leaves = [x.detach().transpose(1, 2).requires_grad_()
+                  for x in (q, k, v)]
+        d_out_t = d_out.transpose(1, 2)
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+            torch.autograd.grad(o, leaves, d_out_t)
+
+        with torch.no_grad():
+            sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+                *leaves, is_causal=True), iters=20)
+        t["sdpa_bwd"] = cuda_ms(sdpa_fwd_bwd, iters=20) - sdpa_fwd
+        bounds = {name: flash_bound(q, True, name, with_lse=True)
+                  for name in ("fwd", "dq", "dkv", "bwd")}
+        log(f"[timing-bwd] {card} | {shape} bf16 causal fused: "
+            f"dq {t['dq']:.4f} ms (bound {bounds['dq'][0]:.4f}, "
+            f"{bounds['dq'][1]}); dkv {t['dkv']:.4f} ms (bound "
+            f"{bounds['dkv'][0]:.4f}, {bounds['dkv'][1]}); dq+dkv (with "
+            f"Delta) {t['bwd']:.4f} ms (bound of the backward "
+            f"{bounds['bwd'][0]:.4f}, {bounds['bwd'][1]}); fwd+LSE "
+            f"{t['fwd_lse']:.4f} ms (bound {bounds['fwd'][0]:.4f}, "
+            f"{bounds['fwd'][1]}); plain forward+LSE {t['plain_fwd']:.4f} "
+            f"ms; plain backward {t['plain_bwd']:.4f} ms; SDPA backward "
+            f"{t['sdpa_bwd']:.4f} ms (SDPA forward {sdpa_fwd:.4f} ms); "
+            f"fwd+LSE vs plain: |dO| / row max |O_ref| {err_fwd:.3g} "
+            f"(bound {TOL[torch.bfloat16]:.3g}), max |dLSE| {err_lse:.3g} "
+            f"(atol {LSE_ATOL}); max |d(dq)| {err_dq:.3g}, max "
+            f"|d(dk, dv)| {err_dkv:.3g}, bitwise equal {equal:.6f} of dq, "
+            f"dk, dv")
+        # dq and dkv each compute part of the backward; the plain version
+        # and the library call compute all of it, so each kernel's row
+        # also carries the pair's time and the backward's own bound.
+        whole = {"plain_ms": t["plain_bwd"], "library_ms": t["sdpa_bwd"],
+                 "plain_and_library_compute": "dq, dk and dv together",
+                 "pair_ms": t["bwd"], "pair_bound_ms": bounds["bwd"][0],
+                 "pair_bound_by": bounds["bwd"][1]}
+        by_shape["flash_fwd"][shape] = {
+            "max_abs_err": err_fwd, "max_lse_err": err_lse,
+            "ms": t["fwd_lse"], "plain_ms": t["plain_fwd"],
+            "bound_ms": bounds["fwd"][0], "bound_by": bounds["fwd"][1],
+            "library_ms": sdpa_fwd}
+        by_shape["flash_dq"][shape] = {
+            "max_abs_err": err_dq, "ms": t["dq"],
+            "bound_ms": bounds["dq"][0], "bound_by": bounds["dq"][1],
+            **whole}
+        by_shape["flash_dkv"][shape] = {
+            "max_abs_err": err_dkv, "ms": t["dkv"],
+            "bound_ms": bounds["dkv"][0], "bound_by": bounds["dkv"][1],
+            **whole}
+        del q, k, v, out, lse, ops, leaves
+        torch.cuda.empty_cache()
+    return by_shape
+
+
 def main():
     t0 = time.perf_counter()
     phase_device()
     card = card_line()
     phase_build()
     phase_kernel_grid()
-    launches = phase_fp32_slice()
+    phase_kernel_bwd_grid()
+    serve_launches = phase_fp32_slice()
     phase_bf16_slice()
+    train_launches = phase_train(card)
+    phase_train_fp32()
     timing = phase_timing(card)
+    timing_bwd = phase_timing_bwd(card)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
+    by_path = {"serve": {"flash_fwd": serve_launches},
+               **{f"train {tag}": n for tag, n in train_launches.items()}}
+    # dq's and dkv's top-level fields are those of the first training
+    # shape; the forward's are the serving shape's.
+    first = next(iter(timing_bwd["flash_dq"]))
+    kernels = [
+        ("flash_fwd", "ray_tpu_torch/ops/csrc/flash_fwd.cu",
+         "ray_tpu/ops/attention.py:171", timing, timing_bwd["flash_fwd"]),
+        ("flash_dq", "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+         "ray_tpu/ops/attention.py:240", timing_bwd["flash_dq"][first],
+         timing_bwd["flash_dq"]),
+        ("flash_dkv", "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+         "ray_tpu/ops/attention.py:284", timing_bwd["flash_dkv"][first],
+         timing_bwd["flash_dkv"]),
+    ]
     print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "ray_tpu/ops/attention.py:171",
-        "launches": launches, **timing}]}))
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": sum(n.get(name, 0) for n in by_path.values()),
+        "launches_by_path": {path: n[name] for path, n in by_path.items()
+                             if name in n},
+        **fields, "training_shapes": train}
+        for name, source, replaces, fields, train in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,9 @@ same logits:
   and the logits are promoted to fp32.
 
 Attention goes through ``ops.attention``: ``mha_attention`` (the Hopper
-flash kernel on long CUDA inputs) for the full-context forward, and
-``cached_attention`` for the incremental-decode path.
+flash kernels on long CUDA inputs, differentiable) for the full-context
+forward, and ``cached_attention`` for the incremental-decode path.
+``gpt2_loss_fn`` is the training objective.
 """
 from __future__ import annotations
 
@@ -181,3 +182,12 @@ class GPT2(nn.Module):
         if decode:
             return logits, new_kvs
         return logits
+
+
+def gpt2_loss_fn(model: GPT2, batch) -> torch.Tensor:
+    """Next-token cross-entropy (``ray_tpu.models.gpt2.gpt2_loss_fn``):
+    batch ``{"input_ids": [B, L]}``, labels the shifted inputs; the mean
+    over the B*(L-1) positions of -log_softmax of the fp32 logits."""
+    ids = batch["input_ids"]
+    logits = model(ids)[:, :-1]
+    return F.cross_entropy(logits.flatten(0, 1), ids[:, 1:].flatten())

@@ -39,6 +39,19 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
             ctypes.c_int),
         "rtt_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
+    "flash_bwd": {
+        "rtt_flash_dq": (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+            + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+               ctypes.c_void_p],
+            ctypes.c_int),
+        "rtt_flash_dkv": (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+            + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+               ctypes.c_void_p],
+            ctypes.c_int),
+        "rtt_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,8 @@
-"""The port's Hopper flash-attention kernel against its plain version.
+"""The port's Hopper flash-attention kernels against their plain versions.
 
-The kernel runs only on an NVIDIA card: it has no CPU mode, so these
-tests carry the ``cuda`` marker and skip without one.  The file imports
+The kernels (the forward, and the dq and dkv backward) run only on an
+NVIDIA card: they have no CPU mode, so these tests carry the ``cuda``
+marker and skip without one.  The file imports
 no JAX, so it also runs on a machine with a card and no JAX:
 ``python -m pytest tests/test_torch_flash_kernel.py -m cuda -q``."""
 import pytest
@@ -45,6 +46,64 @@ def test_flash_kernel_matches_reference_on_cuda(dtype, tol, causal, d,
         diff = diff / o_r.float().abs().amax(-1, keepdim=True)
     assert diff.max().item() <= tol
     assert (lse - lse_r).abs().max().item() <= 1e-4
-    with pytest.raises(NotImplementedError):
-        tattn.flash_attention(q.detach().requires_grad_(), k, v,
-                              causal=causal)
+    # An input that requires a gradient goes through the autograd
+    # Function (the backward kernels), not a refusal.
+    out = tattn.flash_attention(q.detach().requires_grad_(), k, v,
+                                causal=causal)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+
+
+def _bwd_error(g, ref):
+    """fp32: max |dX|.  bf16: |dX| over the largest |dX_ref| of its row,
+    that denominator floored at 2^-8 of the tensor's largest |dX_ref| (a
+    row that cancels to ~0, such as dq's first causal row, holds only
+    rounding noise)."""
+    diff = (g.float() - ref.float()).abs()
+    if g.dtype == torch.float32:
+        return diff.max().item()
+    ref = ref.float().abs()
+    row = ref.amax(-1, keepdim=True).clamp_min(2.0 ** -8 * ref.max())
+    return (diff / row).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2.0 ** -5)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("b", [1, 2])
+def test_flash_backward_kernels_match_reference_on_cuda(dtype, tol, causal,
+                                                        d, fused, b):
+    """The dq and dkv kernels, through _FlashAttention's backward, against
+    flash_attention_backward_reference on the same (q, k, v, O, LSE, dO),
+    on contiguous q/k/v and on the views of a fused QKV output, at B = 1
+    and 2 (B = 1 lays Delta out through another reshape).  fp32:
+    max |dX| <= 1e-4 (summation order).  bf16: |dX| <= 2^-5 of its row's
+    largest |dX_ref| (both round dS and P to bf16 at the same points; the
+    bf16 outputs can land one ulp, 2^-7 of the row's largest value,
+    apart)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(d + 1)
+    qkv = torch.randn(b, 256, 3 * 4 * d, device="cuda",
+                      generator=gen).to(dtype)
+    q, k, v = (x.reshape(b, 256, 4, d) for x in qkv.split(4 * d, dim=-1))
+    if not fused:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    d_out = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    before = dict(tattn.LAUNCHES)
+    out, lse = tattn.flash_attention(qg, kg, vg, causal=causal,
+                                     return_lse=True)
+    out.backward(d_out)
+    assert tattn.LAUNCHES["flash_dq"] == before["flash_dq"] + 1
+    assert tattn.LAUNCHES["flash_dkv"] == before["flash_dkv"] + 1
+    with torch.no_grad():
+        want = tattn.flash_attention_backward_reference(
+            q, k, v, out.detach(), lse, d_out, causal)
+    torch.cuda.synchronize()
+    for g, ref in zip((qg.grad, kg.grad, vg.grad), want):
+        assert g.dtype == dtype and g.shape == ref.shape
+        assert _bwd_error(g, ref) <= tol

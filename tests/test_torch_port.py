@@ -3,7 +3,8 @@
 Purity: ``ray_tpu_torch/`` and ``chip_smoke.py`` import no JAX, flax or
 optax and nothing of ``ray_tpu`` (the machine with the card has no JAX).
 Device: an entry point called without ``device=`` runs on CUDA, and where
-there is no CUDA it raises instead of running on the CPU."""
+there is no CUDA it raises instead of running on the CPU; the training
+helpers take no device and run where the model is."""
 import ast
 from pathlib import Path
 
@@ -59,6 +60,23 @@ def test_entry_points_without_device_raise_when_there_is_no_cuda():
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
             call()
+
+
+def test_training_helpers_run_where_the_model_is():
+    """adamw and make_train_step pick no device: the model comes from
+    build_model (CUDA unless told otherwise), and a step on a CPU model
+    returns its loss on the CPU, a 0-d tensor that needs no host sync."""
+    from ray_tpu_torch.models import gpt2_loss_fn
+    from ray_tpu_torch.serve import build_model
+    from ray_tpu_torch.train import adamw, make_train_step
+
+    model = build_model("gpt2", seed=0, device="cpu")
+    step = make_train_step(model, adamw(model.parameters()), gpt2_loss_fn)
+    ids = torch.randint(0, model.config.vocab_size, (2, 16),
+                        generator=torch.Generator().manual_seed(0))
+    loss = step({"input_ids": ids})
+    assert loss.device.type == "cpu" and loss.dim() == 0
+    assert not loss.requires_grad
 
 
 def test_engine_refuses_a_model_on_another_device():
