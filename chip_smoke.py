@@ -17,9 +17,13 @@ two main paths with random weights from a seed:
   the LSE and both backward kernels; then one fp32 step of a 2-layer
   GPT-2 small on the card against the same step on the CPU.
 
-Then it times each kernel beside its bound, its plain version and
-PyTorch's SDPA.  Every phase raises on failure and nothing is caught, so
-any failure exits non-zero.
+Each C entry picks its kernel by dtype (bf16 forward and dkv: ``wgmma``;
+dq and every fp32 kernel: ``fma``); the script checks and prints the
+routes after the build, and the main paths run in those dtypes.  Then
+it times each kernel (in CUDA graphs, without the host's enqueue) beside
+its bound, its achieved TFLOP/s, its plain version and PyTorch's SDPA.
+Every phase raises on failure and nothing is caught, so any failure
+exits non-zero.
 
 The line before the last is the card's name and power limit, as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -64,6 +68,9 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # atol would exceed a typical |O|.  The LSE is fp32 in both cases.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
 LSE_ATOL = 1e-4
+# Lengths that are odd multiples of the kernels' 64-row tile (3 and 5
+# tiles), added to both grids at B = 1.
+ODD_TILE_LENGTHS = (192, 320)
 # The path's attention shape: NaiveLM at width 1024 on GPT-2 small.
 PATH_SHAPE = (1, 1024, 12, 64)
 SEED = 0
@@ -135,6 +142,33 @@ def cuda_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, launches=20, replays=10) -> float:
+    """Device time of one fn(): ``launches`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events, so that the
+    host's enqueue time (which exceeds a short kernel's run at B = 1) is
+    not counted."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (launches * replays)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def flash_bound(q, causal, kernel="fwd", with_lse=False) -> tuple:
     """Least time (ms) for a flash kernel on these self-attention inputs
     (lq == lk), over the visible (q, k) pairs, each input read once and
@@ -155,18 +189,43 @@ def flash_bound(q, causal, kernel="fwd", with_lse=False) -> tuple:
     b, lq, h, d = q.shape
     tensor_bytes = q.numel() * q.element_size()
     row_bytes = b * h * lq * 4  # one fp32 value per row (LSE, Delta)
-    tensors, rows, per_pair = {
-        "fwd": (4, int(with_lse), 4),
-        "dq": (5, 2, 6),
-        "dkv": (6, 2, 8),
-        "bwd": (8, 1, 10)}[kernel]
+    tensors, rows = {"fwd": (4, int(with_lse)), "dq": (5, 2), "dkv": (6, 2),
+                     "bwd": (8, 1)}[kernel]
     nbytes = tensors * tensor_bytes + rows * row_bytes
-    pairs = lq * (lq + 1) // 2 if causal else lq * lq
-    ops = per_pair * b * h * pairs * d
+    ops = flash_ops(q, causal, kernel)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[q.dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
+
+
+def flash_ops(q, causal, kernel="fwd") -> int:
+    """Operations of a flash kernel on the visible (q, k) pairs of these
+    self-attention inputs: 4*D a pair (fwd), 6*D (dq), 8*D (dkv), 10*D
+    (bwd), as ``flash_bound`` counts them."""
+    b, lq, h, d = q.shape
+    pairs = lq * (lq + 1) // 2 if causal else lq * lq
+    per_pair = {"fwd": 4, "dq": 6, "dkv": 8, "bwd": 10}[kernel]
+    return per_pair * b * h * pairs * d
+
+
+def rate_line(q, causal, kernel, ms, with_lse=False) -> str:
+    """A kernel's achieved TFLOP/s on the visible pairs and its share of
+    the bound (bound / time)."""
+    bound_ms, bound_by = flash_bound(q, causal, kernel, with_lse)
+    tflops = flash_ops(q, causal, kernel) / (ms * 1e-3) / 1e12
+    return (f"{tflops:.1f} TFLOP/s, {bound_ms / ms:.1%} of its bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+
+
+def routes_by_dtype() -> dict:
+    """Each kernel's route for each dtype, as its C entry names it."""
+    libs = {"flash_fwd": _build.load("flash_fwd"),
+            "flash_dq": _build.load("flash_bwd"),
+            "flash_dkv": _build.load("flash_bwd")}
+    return {name: {str(dtype)[6:]: getattr(lib, f"rtt_{name}_route")(code)
+                   .decode() for dtype, code in attn._DTYPE_CODES.items()}
+            for name, lib in libs.items()}
 
 
 def kernel_error(o, o_ref) -> float:
@@ -235,6 +294,13 @@ def phase_build():
         f"{libs}")
     if len(libs) != 1:
         raise AssertionError(f"expected one libcudart, found {libs}")
+    routes = routes_by_dtype()
+    log(f"[build] routes by dtype: {routes}")
+    want = {"flash_fwd": {"bfloat16": "wgmma", "float32": "fma"},
+            "flash_dq": {"bfloat16": "fma", "float32": "fma"},
+            "flash_dkv": {"bfloat16": "wgmma", "float32": "fma"}}
+    if routes != want:
+        raise AssertionError(f"routes {routes}, expected {want}")
 
 
 def phase_kernel_grid():
@@ -244,14 +310,18 @@ def phase_kernel_grid():
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     n = 0
+    dtypes = (torch.bfloat16, torch.float32)
+    # The base grid, then lengths that are odd multiples of the 64-row
+    # tile (B = 1, with the LSE).
+    cases = [(*c, (True, False)) for c in itertools.product(
+        (1, 4), (128, 1024, 2048), (64, 128), dtypes)]
+    cases += [(*c, (True,)) for c in itertools.product(
+        (1,), ODD_TILE_LENGTHS, (64, 128), dtypes)]
     with torch.no_grad():
-        for b, length, d, dtype in itertools.product(
-                (1, 4), (128, 1024, 2048), (64, 128),
-                (torch.bfloat16, torch.float32)):
+        for b, length, d, dtype, lse_cases in cases:
             fused = fused_qkv(b, length, 12, d, dtype, gen)
             for layout, causal, with_lse in itertools.product(
-                    ("contiguous", "fused_qkv"), (True, False),
-                    (True, False)):
+                    ("contiguous", "fused_qkv"), (True, False), lse_cases):
                 q, k, v = fused if layout == "fused_qkv" else \
                     [x.contiguous() for x in fused]
                 got = attn.flash_attention(q, k, v, causal=causal,
@@ -325,9 +395,10 @@ def phase_kernel_bwd_grid():
             worst[g.dtype] = max(worst[g.dtype], err)
         n += 1
 
-    for b, length, d, dtype in itertools.product(
-            (1, 4), (128, 1024, 2048), (64, 128),
-            (torch.bfloat16, torch.float32)):
+    dtypes = (torch.bfloat16, torch.float32)
+    for b, length, d, dtype in itertools.chain(
+            itertools.product((1, 4), (128, 1024, 2048), (64, 128), dtypes),
+            itertools.product((1,), ODD_TILE_LENGTHS, (64, 128), dtypes)):
         fused = fused_qkv(b, length, 12, d, dtype, gen)
         for layout, causal in itertools.product(
                 ("contiguous", "fused_qkv"), (True, False)):
@@ -425,7 +496,8 @@ def phase_fp32_slice() -> int:
     steps = sum(len(w) for w in want)
     log(f"[fp32] NaiveLM(width=1024): {steps} steps in {naive_s:.2f} s, "
         f"flash_fwd launches {launches - engine_launches} "
-        f"({(launches - engine_launches) / steps:.1f} per step)")
+        f"({(launches - engine_launches) / steps:.1f} per step), fp32 route "
+        f"{routes_by_dtype()['flash_fwd']['float32']}")
     # One launch per layer per step: 12 on GPT-2 small.
     if launches - engine_launches != model.config.num_layers * steps:
         raise AssertionError(f"flash_fwd launched {launches - engine_launches}"
@@ -485,6 +557,7 @@ def phase_train(card) -> dict:
     steps ended by one device read of the last loss (bench.py:143-148).
     Returns the launches of each kernel in the timed windows."""
     launches = {}
+    routes = {name: r["bfloat16"] for name, r in routes_by_dtype().items()}
     for b, length, iters in TRAIN_SHAPES:
         tag = f"B={b} S={length}"
         model = build_model("gpt2", {"tiny": False,
@@ -535,7 +608,7 @@ def phase_train(card) -> dict:
             f"tokens/s, MFU {mfu:.4f} (N={n_params}, "
             f"{flops_per_token / 1e9:.3f} GFLOP/token, bf16 peak); loss "
             f"{' '.join(f'{x:.4f}' for x in losses)}; launches per step "
-            f"{per_step}; peak memory "
+            f"{per_step}, bf16 routes {routes}; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
         del model, step, losses
         torch.cuda.empty_cache()
@@ -583,9 +656,10 @@ def phase_train_fp32():
 
 def phase_timing(card) -> dict:
     """Kernel, plain version and SDPA at the path's shape and layout (bf16
-    causal, q/k/v the views of a fused QKV output, back-to-back launches,
-    inputs L2-resident as in the model), plus the kernel-vs-plain-path
-    crossover over L."""
+    causal, q/k/v the views of a fused QKV output, inputs L2-resident as
+    in the model), each timed in a CUDA graph, plus the kernel-vs-plain-
+    path crossover over L (back-to-back launches from Python, as the
+    model calls them)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     q, k, v = fused_qkv(*PATH_SHAPE, torch.bfloat16, gen)
     with torch.no_grad():
@@ -595,20 +669,26 @@ def phase_timing(card) -> dict:
         if not kernel_error(got, want) <= TOL[torch.bfloat16]:
             raise AssertionError("flash kernel disagrees at the path's "
                                  "shape")
-        ms = cuda_ms(lambda: attn.flash_attention(q, k, v, causal=True))
-        plain_ms = cuda_ms(lambda: attn.flash_attention_reference(
+        launch_ms = cuda_ms(lambda: attn.flash_attention(q, k, v,
+                                                         causal=True))
+        ms = graph_ms(lambda: attn.flash_attention(q, k, v, causal=True))
+        plain_ms = graph_ms(lambda: attn.flash_attention_reference(
             q, k, v, causal=True))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        sdpa_ms = graph_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True))
         q32, k32, v32 = (x.float() for x in (q, k, v))
-        ms32 = cuda_ms(lambda: attn.flash_attention(q32, k32, v32,
-                                                    causal=True))
+        ms32 = graph_ms(lambda: attn.flash_attention(q32, k32, v32,
+                                                     causal=True))
     bound_ms, bound_by = flash_bound(q, True)
+    routes = routes_by_dtype()["flash_fwd"]
     log(f"[timing] {card} | flash_fwd 1x12x1024x64 bf16 causal: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {sdpa_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}); fp32 kernel {ms32:.4f} ms (bound "
-        f"{flash_bound(q32, True)[0]:.4f} ms)")
+        f"({routes['bfloat16']}) {ms:.4f} ms, "
+        f"{rate_line(q, True, 'fwd', ms)}; plain {plain_ms:.4f} ms, SDPA "
+        f"{sdpa_ms:.4f} ms; fp32 kernel ({routes['float32']}) {ms32:.4f} "
+        f"ms, {rate_line(q32, True, 'fwd', ms32)} (device times in CUDA "
+        f"graphs; the bf16 call launched back to back from Python "
+        f"{launch_ms:.4f} ms)")
     for length in (128, 256, 512, 1024, 2048, 4096):
         x = [torch.randn(1, length, 12, 64, device="cuda", generator=gen)
              .to(torch.bfloat16) for _ in range(3)]
@@ -625,10 +705,10 @@ def phase_timing_bwd(card) -> dict:
     """At each training shape (bf16, causal, q/k/v the views of a fused
     QKV output): the forward with the LSE held against the plain forward
     (O and LSE), dq and dkv held against the plain backward, then timed:
-    dq, dkv and the two together, the forward with the LSE, the plain
-    forward and backward, and SDPA's forward and backward (fwd+bwd minus
-    fwd, timed as a yardstick, never called by the port), each kernel
-    beside its bound.  Returns, per kernel, its JSON fields at each
+    dq, dkv and the two together, the forward with the LSE and SDPA's
+    forward in CUDA graphs; the plain forward and backward, and SDPA's
+    backward (fwd+bwd minus fwd, timed as a yardstick, never called by
+    the port) from back-to-back launches; each kernel beside its bound.  Returns, per kernel, its JSON fields at each
     shape."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     by_shape = {name: {} for name in ("flash_fwd", "flash_dq", "flash_dkv")}
@@ -667,14 +747,14 @@ def phase_timing_bwd(card) -> dict:
                                          f"{shape}")
             del dq, dk, dv, want
             t = {
-                "dq": cuda_ms(lambda: attn._flash_dq_cuda(
-                    q, k, v, *ops, True, scale), iters=20),
-                "dkv": cuda_ms(lambda: attn._flash_dkv_cuda(
-                    q, k, v, *ops, True, scale), iters=20),
-                "bwd": cuda_ms(lambda: attn._flash_bwd_cuda(
-                    q, k, v, out, lse, d_out, True, scale), iters=20),
-                "fwd_lse": cuda_ms(lambda: attn._flash_fwd_cuda(
-                    q, k, v, True, scale, True), iters=20),
+                "dq": graph_ms(lambda: attn._flash_dq_cuda(
+                    q, k, v, *ops, True, scale)),
+                "dkv": graph_ms(lambda: attn._flash_dkv_cuda(
+                    q, k, v, *ops, True, scale)),
+                "bwd": graph_ms(lambda: attn._flash_bwd_cuda(
+                    q, k, v, out, lse, d_out, True, scale)),
+                "fwd_lse": graph_ms(lambda: attn._flash_fwd_cuda(
+                    q, k, v, True, scale, True)),
                 "plain_fwd": cuda_ms(
                     lambda: attn.flash_attention_reference(
                         q, k, v, True, scale, True), iters=5, warmup=2),
@@ -694,9 +774,19 @@ def phase_timing_bwd(card) -> dict:
         with torch.no_grad():
             sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
                 *leaves, is_causal=True), iters=20)
+            sdpa_fwd_graph = graph_ms(lambda: F.scaled_dot_product_attention(
+                *leaves, is_causal=True))
         t["sdpa_bwd"] = cuda_ms(sdpa_fwd_bwd, iters=20) - sdpa_fwd
         bounds = {name: flash_bound(q, True, name, with_lse=True)
                   for name in ("fwd", "dq", "dkv", "bwd")}
+        routes = {name: r["bfloat16"] for name, r in routes_by_dtype().items()}
+        log(f"[timing-bwd] {card} | {shape} bf16 causal fused, rates on the "
+            f"visible pairs: fwd+LSE ({routes['flash_fwd']}) "
+            f"{rate_line(q, True, 'fwd', t['fwd_lse'], True)}; dq "
+            f"({routes['flash_dq']}) {rate_line(q, True, 'dq', t['dq'])}; "
+            f"dkv ({routes['flash_dkv']}) "
+            f"{rate_line(q, True, 'dkv', t['dkv'])}; dq+dkv "
+            f"{rate_line(q, True, 'bwd', t['bwd'])}")
         log(f"[timing-bwd] {card} | {shape} bf16 causal fused: "
             f"dq {t['dq']:.4f} ms (bound {bounds['dq'][0]:.4f}, "
             f"{bounds['dq'][1]}); dkv {t['dkv']:.4f} ms (bound "
@@ -706,7 +796,7 @@ def phase_timing_bwd(card) -> dict:
             f"{t['fwd_lse']:.4f} ms (bound {bounds['fwd'][0]:.4f}, "
             f"{bounds['fwd'][1]}); plain forward+LSE {t['plain_fwd']:.4f} "
             f"ms; plain backward {t['plain_bwd']:.4f} ms; SDPA backward "
-            f"{t['sdpa_bwd']:.4f} ms (SDPA forward {sdpa_fwd:.4f} ms); "
+            f"{t['sdpa_bwd']:.4f} ms (SDPA forward {sdpa_fwd_graph:.4f} ms); "
             f"fwd+LSE vs plain: |dO| / row max |O_ref| {err_fwd:.3g} "
             f"(bound {TOL[torch.bfloat16]:.3g}), max |dLSE| {err_lse:.3g} "
             f"(atol {LSE_ATOL}); max |d(dq)| {err_dq:.3g}, max "
@@ -723,7 +813,7 @@ def phase_timing_bwd(card) -> dict:
             "max_abs_err": err_fwd, "max_lse_err": err_lse,
             "ms": t["fwd_lse"], "plain_ms": t["plain_fwd"],
             "bound_ms": bounds["fwd"][0], "bound_by": bounds["fwd"][1],
-            "library_ms": sdpa_fwd}
+            "library_ms": sdpa_fwd_graph}
         by_shape["flash_dq"][shape] = {
             "max_abs_err": err_dq, "ms": t["dq"],
             "bound_ms": bounds["dq"][0], "bound_by": bounds["dq"][1],
@@ -766,9 +856,10 @@ def main():
          "ray_tpu/ops/attention.py:284", timing_bwd["flash_dkv"][first],
          timing_bwd["flash_dkv"]),
     ]
+    routes = routes_by_dtype()
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
-        "replaces": replaces,
+        "replaces": replaces, "routes_by_dtype": routes[name],
         "launches": sum(n.get(name, 0) for n in by_path.values()),
         "launches_by_path": {path: n[name] for path, n in by_path.items()
                              if name in n},

@@ -7,8 +7,13 @@ compiled, so a build takes seconds rather than minutes.  The library
 links the CUDA runtime as a shared library (``-cudart=shared``), so it
 binds to the ``libcudart`` that PyTorch has already loaded and shares
 its error state and current device.  The libraries go into ``ray_tpu_torch/_build/``
-(listed in ``.gitignore``) under a name that carries a hash of the source
-and flags, so an edited source is rebuilt.  A build that fails raises
+(listed in ``.gitignore``) under a name that carries a hash of the
+source, of every ``csrc/*.cuh`` header it includes (``#include "..."``,
+followed through headers), and of the flags, so an edited source or
+header is rebuilt.  The bf16 kernels encode their TMA tensor maps with
+``cuTensorMapEncodeTiled`` from ``libcuda``, so the libraries link
+``-lcuda`` (the toolkit's stub at build time, the installed
+``libcuda.so.1`` at run time).  A build that fails raises
 ``RuntimeError`` with nvcc's output.
 """
 from __future__ import annotations
@@ -16,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,6 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-lineinfo", "-cudart=shared", *ARCH_FLAGS]
+LINK_FLAGS = ["-lcuda"]
 # One library per source; the ctypes signature of each exported symbol.
 SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
     "flash_fwd": {
@@ -37,6 +44,7 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
              ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
              ctypes.c_void_p],
             ctypes.c_int),
+        "rtt_flash_fwd_route": ([ctypes.c_int], ctypes.c_char_p),
         "rtt_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
     "flash_bwd": {
@@ -50,9 +58,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
             + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
                ctypes.c_void_p],
             ctypes.c_int),
+        "rtt_flash_dq_route": ([ctypes.c_int], ctypes.c_char_p),
+        "rtt_flash_dkv_route": ([ctypes.c_int], ctypes.c_char_p),
         "rtt_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
 }
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -71,21 +82,50 @@ def nvcc() -> str:
     return found
 
 
+def included_headers(name: str, csrc: Path = CSRC) -> list:
+    """The ``csrc`` headers that ``csrc/<name>.cu`` includes with quotes,
+    directly or through other headers, sorted by name."""
+    seen, todo = set(), [csrc / f"{name}.cu"]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop().read_text()):
+            path = csrc / inc
+            if path.exists() and path not in seen:
+                seen.add(path)
+                todo.append(path)
+    return sorted(seen)
+
+
+def source_digest(name: str, csrc: Path = CSRC) -> str:
+    """Hash of ``csrc/<name>.cu``, the headers it includes and the nvcc
+    flags: the build's cache key."""
+    digest = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in included_headers(name, csrc):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    return digest.hexdigest()
+
+
+def build_command(name: str, out: Path) -> list:
+    """The nvcc command line that builds ``csrc/<name>.cu`` into ``out``."""
+    compiler = nvcc()
+    stubs = Path(compiler).parent.parent / "lib64" / "stubs"
+    link = ([f"-L{stubs}"] if stubs.is_dir() else []) + LINK_FLAGS
+    return [compiler, *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu"),
+            *link]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     with _lock:
         lib = _loaded.get(name)
         if lib is not None:
             return lib
-        src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes())
-        digest.update(" ".join(NVCC_FLAGS).encode())
-        out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+        out = BUILD_DIR / f"lib{name}-{source_digest(name)[:16]}.so"
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                                   str(src)], capture_output=True, text=True)
+            proc = subprocess.run(build_command(name, tmp),
+                                  capture_output=True, text=True)
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
                 raise RuntimeError(f"nvcc failed for csrc/{name}.cu (exit "

@@ -197,24 +197,35 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _check_kernel_operands(**tensors):
     """The kernels' common refusals: one dtype (bf16 or fp32), head_dim 64
-    or 128, and 4-element alignment (they read 4 elements at a time along
-    D: the last dim contiguous, the other strides and the base pointer
-    multiples of 4 elements)."""
+    or 128, a contiguous last dimension, and the alignment of the dtype's
+    route.  bf16 (the wgmma kernels, fed by TMA): the base pointer
+    16-byte aligned and the other strides multiples of 16 bytes (8
+    elements).  fp32 (the FMA kernels, 4 elements at a time along D): the
+    base pointer and the other strides multiples of 4 elements."""
     dtypes = {x.dtype for x in tensors.values()}
     if len(dtypes) != 1 or not dtypes <= set(_DTYPE_CODES):
         raise ValueError(f"the flash kernels take bf16 or fp32 operands of "
                          f"one dtype (got {sorted(map(str, dtypes))})")
+    dtype = dtypes.pop()
     d = next(iter(tensors.values())).shape[-1]
     if d not in (64, 128):
         raise ValueError(f"the flash kernels take head_dim 64 or 128, "
                          f"got {d}")
+    if dtype == torch.bfloat16:
+        step, rule = 8, ("bf16 (TMA): the base pointer and the other "
+                         "strides must be multiples of 16 bytes")
+    else:
+        step, rule = 4, ("fp32: the base pointer and the other strides "
+                         "must be multiples of 4 elements")
     for name, x in tensors.items():
-        if x.stride(3) != 1 or any(x.stride(i) % 4 for i in range(3)) or \
-                x.data_ptr() % (4 * x.element_size()):
-            raise ValueError(f"{name}: the last dim must be contiguous and "
-                             f"the other strides and the base pointer "
-                             f"multiples of 4 elements (strides "
-                             f"{x.stride()})")
+        if x.stride(3) != 1:
+            raise ValueError(f"{name}: the last dim must be contiguous "
+                             f"(strides {x.stride()})")
+        if any(x.stride(i) % step for i in range(3)) or \
+                x.data_ptr() % (step * x.element_size()):
+            raise ValueError(f"{name}: {rule} (strides {x.stride()}, base "
+                             f"pointer {x.data_ptr() % 16} bytes past a "
+                             f"16-byte boundary)")
 
 
 def _raise_on(lib, name, err):

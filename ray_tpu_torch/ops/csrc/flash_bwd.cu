@@ -22,11 +22,37 @@
 // owner and no atomics are needed.
 //
 // Layout: q, k, v and dO are read in the public [B, L, H, D] layout
-// through their strides (the last dimension contiguous, every pointer and
-// stride a multiple of 4 elements; the wrapper checks).  LSE and Delta are
-// fp32 [B*H, Lq], row b*H + h.
+// through their strides (the last dimension contiguous).  LSE and Delta
+// are fp32 [B*H, Lq], row b*H + h.
 //
-// Design: as the forward (csrc/flash_fwd.cu), 256 threads per block in a
+// Routes, chosen by dtype in the C entries (rtt_flash_dq_route and
+// rtt_flash_dkv_route name them); none falls back to another:
+//   dq:  FMA in both dtypes (flash_dq_kernel).
+//   dkv: wgmma in bf16 (flash_dkv_wgmma), FMA in fp32 (flash_dkv_kernel).
+//
+// bf16 dkv on the tensor cores, in the transposed frame: one warpgroup per
+// (64-key K tile, batch*head); the keys are wgmma's M rows.
+//   - K and V are loaded once by TMA; the Q and dO tiles, with their 64
+//     LSE and 64 Delta values (bulk copies), stream through a 2-stage ring
+//     of TMA loads that complete on an mbarrier per stage (128-byte
+//     swizzle; the tensor maps describe the strided views, so base and
+//     strides must be multiples of 16 bytes).  Thread 0 starts tile i + 2
+//     as soon as the block is done with tile i.
+//   - Scores in log2 units: P^T is one FFMA and one ex2 a score, with LSE
+//     taken to log2 units; a masked score is -inf, so its p is exactly 0.
+//   - S^T = K Q^T and dP^T = V dO^T: wgmma m64n64k16, A = K or V, B = the
+//     Q or dO tile, both K-major in shared memory.
+//   - P^T = exp(S^T * scale - LSE) and dS^T = P^T (dP^T - Delta) * scale
+//     are formed on the fp32 accumulators (LSE and Delta are per column
+//     there, read from the staged 64 + 64 floats), rounded to bf16 and
+//     packed pairwise into A fragments.
+//   - dV += round(P^T) dO and dK += round(dS^T) Q: wgmma m64nDk16 with A
+//     from registers and B = the same Q and dO tiles read MN-major, so one
+//     bf16 copy of each tile serves both of its uses (the fp32 FMA kernel
+//     restages each Q tile transposed, then row-major).  dK and dV
+//     accumulate in fp32 registers and are written once, in bf16.
+//   Shared memory: 16 + 2 x 16.5 KB at D = 64, 32 + 2 x 32.5 KB at D = 128.
+// FMA kernels (dq in both dtypes, dkv in fp32): 256 threads per block in a
 // 16 x 16 grid of 4 x 4 register micro-tiles, 64-row tiles, operands
 // staged through shared memory as fp32, every product a plain fp32 FMA.
 //   dq:  Q^T and dO^T stay in shared memory; each K tile is staged as
@@ -34,21 +60,25 @@
 //        memory transposed.  ~103 KB at D = 64, ~189 KB at D = 128.
 //   dkv: K^T and V^T stay; each Q tile is staged first as Q^T, dO^T (for
 //        S^T and dP^T), then, in the same buffer, as Q and dO row-major
-//        (for dK and dV), which keeps D = 128 at ~174 KB (staging both
-//        layouts at once would need ~240 KB, past the 227 KB a block may
-//        have).  round(P) and dS go through shared memory.
+//        (for dK and dV), which keeps D = 128 at ~174 KB.  round(P) and dS
+//        go through shared memory.
+// fp32 keeps FMA on purpose: it is the reference-precision route (TF32 on
+// the tensor cores keeps about 3 digits), which the card-vs-CPU fp32
+// training step holds at 1e-4.
 //
-// What bounds it on this card: at GPT-2's training shapes the work is
+// What bounds them on this card: at GPT-2's training shapes the work is
 // 6*D (dq) and 8*D (dkv) FLOPs per visible (q, k) pair against a few
 // hundred bytes per row, so the H100 bound is operations at the bf16
-// tensor-core rate (989 TFLOP/s).  These kernels use no tensor core, so
-// they are bound instead by the fp32 FMA rate (67 TFLOP/s peak) and by
-// shared-memory reads.  Left on the table: wgmma on bf16 tiles with the
-// score tiles kept in registers, TMA loads with an mbarrier pipeline, and
-// one fused kernel that accumulates dQ with atomics or a second pass so
-// that S and dP are computed once instead of twice.  Those are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// tensor-core rate (989 TFLOP/s).  The FMA kernels are bound instead by
+// the fp32 FMA rate (67 TFLOP/s peak) and by shared-memory reads.  The
+// wgmma dkv serialises, within its warpgroup, the two score products, the
+// elementwise P/dS pass and the two gradient products; other blocks on
+// the SM fill the tensor cores meanwhile.  Left on the table: dq on the
+// tensor cores (next), or dQ accumulated in this loop (atomics or a second
+// pass) so that S and dP are computed once instead of twice; warp
+// specialisation (a producer warp with setmaxnreg, two consumer
+// warpgroups); a persistent schedule; TMA stores of dK and dV.
+#include "sm90.cuh"
 
 namespace {
 
@@ -397,6 +427,191 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ----------------------------------------------------- bf16 dkv: wgmma
+// In the transposed frame: the 64 keys of the block's K tile are wgmma's
+// M rows, so every product has its operands where wgmma takes them.
+//   S^T = K Q^T, dP^T = V dO^T  (A = K or V, B = the Q or dO tile, both
+//                                K-major in shared memory);
+//   dV += round(P^T) dO, dK += round(dS^T) Q  (A = P^T or dS^T from
+//                                registers, B = the same Q and dO tiles
+//                                read MN-major).
+// One bf16 copy of each Q and dO tile serves both its uses.  The
+// accumulator layout and the A fragment are as in flash_fwd.cu's
+// softmax_tile; LSE[q] and Delta[q] are per column here.
+constexpr int kWgThreads = 128;  // one warpgroup
+constexpr int kStages = 2;       // Q/dO/LSE/Delta ring depth
+
+template <int D>
+constexpr int dkv_wgmma_smem_bytes() {
+  // 1024 bytes of alignment slack, K, V, then kStages x (Q, dO).
+  return 1024 + (D / 64) * sm90::kSlabBytes * (2 + 2 * kStages);
+}
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kWgThreads)
+flash_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                int H, int Lq, int Lk, float scale) {
+  constexpr int kTileBytes = (D / 64) * sm90::kSlabBytes;
+  extern __shared__ float4 smem_raw[];  // as the FMA kernel declares it
+  __shared__ uint64_t bar_kv, bar_q[kStages];
+  __shared__ __align__(16) float s_lse[kStages][kBlock];
+  __shared__ __align__(16) float s_delta[kStages][kBlock];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(smem_raw);
+  smem += (1024 - (sm90::smem_u32(smem) & 1023)) & 1023;  // swizzle atoms
+  uint8_t* sK = smem;
+  uint8_t* sV = smem + kTileBytes;
+  uint8_t* sQdO = smem + 2 * kTileBytes;  // stage s: Q at 2 s, dO at 2 s + 1
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int k_off = blockIdx.y * kBlock;  // the first K tiles see the most Q tiles
+
+  const int num_q_tiles = Lq / kBlock;
+  int first = 0, first_full = 0;
+  if (kCausal) {
+    // As _flash_dkv_kernel: only Q tiles from the diagonal's on see this
+    // K tile; those up to first_full cross the diagonal and are masked.
+    first = k_off / kBlock;
+    first_full = min((k_off + kBlock + kBlock - 1) / kBlock, num_q_tiles);
+  }
+  const int num_iter = num_q_tiles - first;
+  const float* lse_bh = lse + (long long)bh * Lq;
+  const float* delta_bh = delta + (long long)bh * Lq;
+
+  auto load_q = [&](int stage, int qt) {
+    uint8_t* sq = sQdO + 2 * stage * kTileBytes;
+    sm90::mbar_expect_tx(&bar_q[stage], 2 * kTileBytes + 2 * kBlock * 4);
+#pragma unroll
+    for (int sl = 0; sl < D / 64; ++sl) {
+      sm90::tma_load_4d(sq + sl * sm90::kSlabBytes, &tq, &bar_q[stage], 64 * sl,
+                        h, qt * kBlock, b);
+      sm90::tma_load_4d(sq + kTileBytes + sl * sm90::kSlabBytes, &tdo,
+                        &bar_q[stage], 64 * sl, h, qt * kBlock, b);
+    }
+    sm90::bulk_load(s_lse[stage], lse_bh + qt * kBlock, kBlock * 4, &bar_q[stage]);
+    sm90::bulk_load(s_delta[stage], delta_bh + qt * kBlock, kBlock * 4,
+                    &bar_q[stage]);
+  };
+
+  if (tid == 0) {
+    sm90::mbar_init(&bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) sm90::mbar_init(&bar_q[s], 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    sm90::mbar_expect_tx(&bar_kv, 2 * kTileBytes);
+#pragma unroll
+    for (int sl = 0; sl < D / 64; ++sl) {
+      sm90::tma_load_4d(sK + sl * sm90::kSlabBytes, &tk, &bar_kv, 64 * sl, h,
+                        k_off, b);
+      sm90::tma_load_4d(sV + sl * sm90::kSlabBytes, &tv, &bar_kv, 64 * sl, h,
+                        k_off, b);
+    }
+    for (int s = 0; s < kStages && s < num_iter; ++s) load_q(s, first + s);
+  }
+
+  const int r0 = 16 * warp + lane / 4;  // this thread's keys: r0, r0 + 8
+  const float scale_log2 = scale * sm90::kLog2e;
+  float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc_k[e] = acc_v[e] = 0.f;
+
+  sm90::mbar_wait(&bar_kv, 0);
+  for (int i = 0; i < num_iter; ++i) {
+    const int qt = first + i;
+    const int q_off = qt * kBlock;
+    const int stage = i % kStages;
+    const uint8_t* sQ = sQdO + 2 * stage * kTileBytes;
+    const uint8_t* sdO = sQ + kTileBytes;
+    sm90::mbar_wait(&bar_q[stage], (i / kStages) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T.
+    float s[32], dp[32];
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      sm90::wgmma_ss_m64n64k16(s, sm90::desc_kmajor(sK, k),
+                               sm90::desc_kmajor(sQ, k), k);
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      sm90::wgmma_ss_m64n64k16(dp, sm90::desc_kmajor(sV, k),
+                               sm90::desc_kmajor(sdO, k), k);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(s);
+    sm90::fence_operands(dp);
+
+    // P^T and dS^T on the accumulators, packed into A fragments.  P is
+    // exp2(s * scale * log2(e) - LSE * log2(e)): one FFMA and one ex2; a
+    // masked score is -inf, so its p is exactly 0.
+    const bool masked = kCausal && qt < first_full;
+    uint32_t pf[4][4], dsf[4][4];
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      const int key = k_off + r0 + 8 * ((e / 2) % 2);
+      const int c = 8 * (e / 4) + 2 * (lane % 4);  // columns c, c + 1
+      const float2 col_lse = *reinterpret_cast<const float2*>(&s_lse[stage][c]);
+      const float2 col_delta = *reinterpret_cast<const float2*>(&s_delta[stage][c]);
+      float p[2], ds[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float sv = s[e + u];
+        if (masked && !(q_off + c + u >= key)) sv = sm90::neg_inf();
+        p[u] = sm90::ex2(fmaf(sv, scale_log2,
+                              -(u ? col_lse.y : col_lse.x) * sm90::kLog2e));
+        ds[u] = p[u] * (dp[e + u] - (u ? col_delta.y : col_delta.x)) * scale;
+      }
+      pf[e / 8][(e % 8) / 2] = sm90::pack_bf16(p[0], p[1]);
+      dsf[e / 8][(e % 8) / 2] = sm90::pack_bf16(ds[0], ds[1]);
+    }
+
+    // dV += round(P^T) dO and dK += round(dS^T) Q.
+    sm90::fence_operands(acc_v);
+    sm90::fence_operands(acc_k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      sm90::fence_operands(pf[kk]);
+      sm90::fence_operands(dsf[kk]);
+    }
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm90::wgmma_rs_bmn<D>(acc_v, pf[kk], sm90::desc_mnmajor(sdO, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm90::wgmma_rs_bmn<D>(acc_k, dsf[kk], sm90::desc_mnmajor(sQ, kk));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(acc_v);
+    sm90::fence_operands(acc_k);
+
+    // Every warp's products on this stage have completed: refill it.
+    __syncthreads();
+    if (tid == 0 && i + kStages < num_iter) load_q(stage, qt + kStages);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long row = ((long long)b * Lk + k_off + r0 + 8 * r) * H + h;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      *reinterpret_cast<uint32_t*>(dk + row * D + col) =
+          sm90::pack_bf16(acc_k[4 * j + 2 * r], acc_k[4 * j + 2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dv + row * D + col) =
+          sm90::pack_bf16(acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
 template <typename Kernel>
 int set_smem(Kernel kernel, int bytes) {
   return (int)cudaFuncSetAttribute(
@@ -442,6 +657,36 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+template <int D, bool kCausal>
+int launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     void* dk, void* dv, int B, int H, int Lq, int Lk,
+                     const long long* st, float scale, cudaStream_t stream) {
+  if (reinterpret_cast<uintptr_t>(lse) % 16 || reinterpret_cast<uintptr_t>(delta) % 16)
+    return -1;
+  CUtensorMap tq, tk, tv, tdo;
+  if (make_bhld_tensor_map(&tq, q, B, H, Lq, D, st[0], st[1], st[2]) ||
+      make_bhld_tensor_map(&tk, k, B, H, Lk, D, st[3], st[4], st[5]) ||
+      make_bhld_tensor_map(&tv, v, B, H, Lk, D, st[6], st[7], st[8]) ||
+      make_bhld_tensor_map(&tdo, dout, B, H, Lq, D, st[9], st[10], st[11]))
+    return -1;
+  auto kernel = flash_dkv_wgmma<D, kCausal>;
+  const int smem = dkv_wgmma_smem_bytes<D>();
+  const int err = set_smem(kernel, smem);
+  if (err != 0) return err;
+  const dim3 grid(B * H, Lk / kBlock);
+  kernel<<<grid, kWgThreads, smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), H, Lq, Lk, scale);
+  return (int)cudaGetLastError();
+}
+
+// dq keeps the FMA kernel in both dtypes; dkv takes wgmma in bf16.
+Route dq_route(int dtype) { return dtype == 0 || dtype == 1 ? kFma : kNone; }
+Route dkv_route(int dtype) {
+  return dtype == 0 ? kFma : dtype == 1 ? kWgmma : kNone;
+}
+
 bool bad_args(int B, int H, int Lq, int Lk) {
   return Lq % kBlock || Lk % kBlock || Lq < kBlock || Lk < kBlock || B < 1 ||
          H < 1 || B * H > 65535;
@@ -474,7 +719,9 @@ int rtt_flash_dq(const void* q, const void* k, const void* v,
   return -1;
 }
 
-// As rtt_flash_dq; dk and dv: contiguous [B, Lk, H, D].
+// As rtt_flash_dq; dk and dv: contiguous [B, Lk, H, D].  bf16 takes the
+// wgmma kernel, whose base pointers and strides must be multiples of 16
+// bytes (TMA), as must lse and delta.
 int rtt_flash_dkv(const void* q, const void* k, const void* v,
                   const void* dout, const float* lse, const float* delta,
                   void* dk, void* dv, int dtype, int B, int H, int Lq, int Lk,
@@ -484,15 +731,21 @@ int rtt_flash_dkv(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RTT_DKV(T, DIM, C) \
   launch_dkv<T, DIM, C>(q, k, v, dout, lse, delta, dk, dv, B, H, Lq, Lk, strides, scale, s)
-  if (dtype == 0 && D == 64) return causal ? RTT_DKV(float, 64, true) : RTT_DKV(float, 64, false);
-  if (dtype == 0 && D == 128) return causal ? RTT_DKV(float, 128, true) : RTT_DKV(float, 128, false);
-  if (dtype == 1 && D == 64)
-    return causal ? RTT_DKV(__nv_bfloat16, 64, true) : RTT_DKV(__nv_bfloat16, 64, false);
-  if (dtype == 1 && D == 128)
-    return causal ? RTT_DKV(__nv_bfloat16, 128, true) : RTT_DKV(__nv_bfloat16, 128, false);
+#define RTT_DKV_WG(DIM, C) \
+  launch_dkv_wgmma<DIM, C>(q, k, v, dout, lse, delta, dk, dv, B, H, Lq, Lk, strides, scale, s)
+  const Route route = dkv_route(dtype);
+  if (route == kFma && D == 64) return causal ? RTT_DKV(float, 64, true) : RTT_DKV(float, 64, false);
+  if (route == kFma && D == 128) return causal ? RTT_DKV(float, 128, true) : RTT_DKV(float, 128, false);
+  if (route == kWgmma && D == 64) return causal ? RTT_DKV_WG(64, true) : RTT_DKV_WG(64, false);
+  if (route == kWgmma && D == 128) return causal ? RTT_DKV_WG(128, true) : RTT_DKV_WG(128, false);
+#undef RTT_DKV_WG
 #undef RTT_DKV
   return -1;
 }
+
+// The route each entry takes for a dtype code: "fma", "wgmma" or "".
+const char* rtt_flash_dq_route(int dtype) { return route_name(dq_route(dtype)); }
+const char* rtt_flash_dkv_route(int dtype) { return route_name(dkv_route(dtype)); }
 
 const char* rtt_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -17,10 +17,13 @@ from ray_tpu_torch.ops import attention as tattn
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("b,length", [(2, 256), (1, 192), (1, 320)])
 def test_flash_kernel_matches_reference_on_cuda(dtype, tol, causal, d,
-                                                fused):
+                                                fused, b, length):
     """The Hopper kernel against its plain version on the card, on
-    contiguous q/k/v and on the model's views of a fused QKV output.
+    contiguous q/k/v and on the model's views of a fused QKV output, at
+    L = 256 and at lengths that are odd multiples of the 64-row tile (3
+    and 5 tiles, B = 1), which no tile of the kernels may round up.
     fp32: max |dO| <= 1e-4, for the kernel's own summation order.  bf16:
     in each (b, q, h) row, |dO| <= 2^-5 of the row's largest |O_ref|: the
     kernel rounds P to bf16 before P.V as the TPU kernel does (about 2^-8
@@ -30,9 +33,10 @@ def test_flash_kernel_matches_reference_on_cuda(dtype, tol, causal, d,
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(d)
-    qkv = torch.randn(2, 256, 3 * 4 * d, device="cuda",
+    qkv = torch.randn(b, length, 3 * 4 * d, device="cuda",
                       generator=gen).to(dtype)
-    q, k, v = (x.reshape(2, 256, 4, d) for x in qkv.split(4 * d, dim=-1))
+    q, k, v = (x.reshape(b, length, 4, d)
+               for x in qkv.split(4 * d, dim=-1))
     if not fused:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     with torch.no_grad():
@@ -73,12 +77,14 @@ def _bwd_error(g, ref):
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("length", [256, 192, 320])
 def test_flash_backward_kernels_match_reference_on_cuda(dtype, tol, causal,
-                                                        d, fused, b):
+                                                        d, fused, b, length):
     """The dq and dkv kernels, through _FlashAttention's backward, against
     flash_attention_backward_reference on the same (q, k, v, O, LSE, dO),
     on contiguous q/k/v and on the views of a fused QKV output, at B = 1
-    and 2 (B = 1 lays Delta out through another reshape).  fp32:
+    and 2 (B = 1 lays Delta out through another reshape), at L = 256 and
+    at 3 and 5 tiles.  fp32:
     max |dX| <= 1e-4 (summation order).  bf16: |dX| <= 2^-5 of its row's
     largest |dX_ref| (both round dS and P to bf16 at the same points; the
     bf16 outputs can land one ulp, 2^-7 of the row's largest value,
@@ -87,9 +93,10 @@ def test_flash_backward_kernels_match_reference_on_cuda(dtype, tol, causal,
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(d + 1)
-    qkv = torch.randn(b, 256, 3 * 4 * d, device="cuda",
+    qkv = torch.randn(b, length, 3 * 4 * d, device="cuda",
                       generator=gen).to(dtype)
-    q, k, v = (x.reshape(b, 256, 4, d) for x in qkv.split(4 * d, dim=-1))
+    q, k, v = (x.reshape(b, length, 4, d)
+               for x in qkv.split(4 * d, dim=-1))
     if not fused:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     d_out = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
@@ -107,3 +114,33 @@ def test_flash_backward_kernels_match_reference_on_cuda(dtype, tol, causal,
     for g, ref in zip((qg.grad, kg.grad, vg.grad), want):
         assert g.dtype == dtype and g.shape == ref.shape
         assert _bwd_error(g, ref) <= tol
+
+
+@pytest.mark.cuda
+def test_bf16_routes_are_the_tensor_core_kernels_on_cuda():
+    """The C entries route bf16 forward and dkv to the wgmma kernels, dq
+    and every fp32 kernel to the FMA kernels; a step in each dtype
+    launches each kernel once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from ray_tpu_torch.ops import _build
+    libs = {"flash_fwd": _build.load("flash_fwd"),
+            "flash_dq": _build.load("flash_bwd"),
+            "flash_dkv": _build.load("flash_bwd")}
+    routes = {(name, str(dtype)[6:]):
+              getattr(lib, f"rtt_{name}_route")(code).decode()
+              for name, lib in libs.items()
+              for dtype, code in tattn._DTYPE_CODES.items()}
+    assert routes == {
+        ("flash_fwd", "bfloat16"): "wgmma", ("flash_fwd", "float32"): "fma",
+        ("flash_dq", "bfloat16"): "fma", ("flash_dq", "float32"): "fma",
+        ("flash_dkv", "bfloat16"): "wgmma", ("flash_dkv", "float32"): "fma"}
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = torch.randn(1, 128, 3 * 2 * 64, device="cuda").to(dtype)
+        leaves = [x.reshape(1, 128, 2, 64).detach().requires_grad_()
+                  for x in qkv.split(2 * 64, dim=-1)]
+        before = dict(tattn.LAUNCHES)
+        tattn.flash_attention(*leaves, causal=True).float().sum().backward()
+        torch.cuda.synchronize()
+        assert {n: tattn.LAUNCHES[n] - before[n] for n in before} == {
+            "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}

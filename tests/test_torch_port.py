@@ -1,7 +1,8 @@
 """Package-wide rules of the PyTorch/CUDA port.
 
-Purity: ``ray_tpu_torch/`` and ``chip_smoke.py`` import no JAX, flax or
-optax and nothing of ``ray_tpu`` (the machine with the card has no JAX).
+Purity: ``ray_tpu_torch/``, ``chip_smoke.py`` and ``chip_kernel_ab.py``
+import no JAX, flax or optax and nothing of ``ray_tpu`` (the machine with
+the card has no JAX).
 Device: an entry point called without ``device=`` runs on CUDA, and where
 there is no CUDA it raises instead of running on the CPU; the training
 helpers take no device and run where the model is."""
@@ -17,7 +18,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
 
 def _port_sources():
     files = sorted((ROOT / "ray_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_kernel_ab.py"]
     return files
 
 
