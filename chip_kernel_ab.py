@@ -1,5 +1,5 @@
-"""Time the port's bf16 flash forward and dkv kernels of several source
-trees on one NVIDIA card, in alternating turns.
+"""Time the port's bf16 flash forward, dq and dkv kernels of several
+source trees on one NVIDIA card, in alternating turns.
 
     python3 chip_kernel_ab.py TREE [TREE ...]
 
@@ -8,7 +8,7 @@ checkout (``.``), or another commit unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists.  The trees run in order and then in
 reverse (parent, change, change, parent for two trees; name a tree again
 for more turns), each run in a fresh process that builds that tree's
-kernels from its own sources, holds the forward (O and LSE) and dkv
+kernels from its own sources, holds the forward (O and LSE), dq and dkv
 against their plain versions at chip_smoke.py's bounds, and times them
 in CUDA graphs
 (chip_smoke.py's ``graph_ms``) at the two training shapes and the serving
@@ -56,22 +56,25 @@ def child(tree: str) -> dict:
             want, want_lse = attn.flash_attention_reference(
                 q, k, v, True, scale, True)
             ops = attn._bwd_operands(q, k, v, out, lse, d_out, True)
+            dq = attn._flash_dq_cuda(q, k, v, *ops, True, scale)
             dk, dv = attn._flash_dkv_cuda(q, k, v, *ops, True, scale)
             grads = attn.flash_attention_backward_reference(
                 q, k, v, out, lse, d_out, True)
             errs = (smoke.kernel_error(out, want),
                     (lse - want_lse).abs().max().item(),
-                    smoke.bwd_error(dk, grads[1]),
-                    smoke.bwd_error(dv, grads[2]))
+                    *(smoke.bwd_error(g, r) for g, r in zip((dq, dk, dv),
+                                                             grads)))
             if not (errs[0] <= smoke.TOL[bf16] and errs[1] <= smoke.LSE_ATOL
                     and max(errs[2:]) <= smoke.BWD_TOL[bf16]):
                 raise AssertionError(f"{tree} {b}x{length}: errors {errs}")
-            del want, want_lse, grads, dk, dv
+            del want, want_lse, grads, dq, dk, dv
             times[f"{b}x12x{length}x64"] = {
                 "fwd_lse": smoke.graph_ms(lambda: attn._flash_fwd_cuda(
                     q, k, v, True, scale, True)),
                 "fwd": smoke.graph_ms(lambda: attn._flash_fwd_cuda(
                     q, k, v, True, scale, False)),
+                "dq": smoke.graph_ms(lambda: attn._flash_dq_cuda(
+                    q, k, v, *ops, True, scale)),
                 "dkv": smoke.graph_ms(lambda: attn._flash_dkv_cuda(
                     q, k, v, *ops, True, scale)),
             }

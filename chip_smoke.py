@@ -17,11 +17,12 @@ two main paths with random weights from a seed:
   the LSE and both backward kernels; then one fp32 step of a 2-layer
   GPT-2 small on the card against the same step on the CPU.
 
-Each C entry picks its kernel by dtype (bf16 forward and dkv: ``wgmma``;
-dq and every fp32 kernel: ``fma``); the script checks and prints the
-routes after the build, and the main paths run in those dtypes.  Then
-it times each kernel (in CUDA graphs, without the host's enqueue) beside
-its bound, its achieved TFLOP/s, its plain version and PyTorch's SDPA.
+Each C entry picks its kernel by dtype (every bf16 kernel: ``wgmma``;
+every fp32 kernel: ``fma``); the script checks and prints the routes
+after the build, and the main paths run in those dtypes.  Then it times
+each kernel (in CUDA graphs, without the host's enqueue) beside its
+bound, its achieved TFLOP/s, its plain version and PyTorch's SDPA, in
+bf16 at the training shapes and in fp32 at the fp32 step's shape.
 Every phase raises on failure and nothing is caught, so any failure
 exits non-zero.
 
@@ -282,22 +283,26 @@ def phase_device():
 
 
 def phase_build():
-    """Build every kernel source, one after the other, and check that the
-    libraries bind to the one CUDA runtime PyTorch loaded."""
-    times = []
-    for name in _build.SIGNATURES:
+    """Build every kernel source, one nvcc each, all started together, and
+    check that the libraries bind to the one CUDA runtime PyTorch
+    loaded."""
+    def build(name):
         t0 = time.perf_counter()
         _build.load(name)
-        times.append(f"{name} {time.perf_counter() - t0:.1f} s")
+        return f"{name} {time.perf_counter() - t0:.1f} s"
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(_build.SIGNATURES)) as pool:
+        times = list(pool.map(build, _build.SIGNATURES))
     libs = cudart_libs()
-    log(f"[build] {', '.join(times)}; CUDA runtime(s) in the process: "
-        f"{libs}")
+    log(f"[build] {', '.join(times)} ({time.perf_counter() - t0:.1f} s in "
+        f"parallel); CUDA runtime(s) in the process: {libs}")
     if len(libs) != 1:
         raise AssertionError(f"expected one libcudart, found {libs}")
     routes = routes_by_dtype()
     log(f"[build] routes by dtype: {routes}")
     want = {"flash_fwd": {"bfloat16": "wgmma", "float32": "fma"},
-            "flash_dq": {"bfloat16": "fma", "float32": "fma"},
+            "flash_dq": {"bfloat16": "wgmma", "float32": "fma"},
             "flash_dkv": {"bfloat16": "wgmma", "float32": "fma"}}
     if routes != want:
         raise AssertionError(f"routes {routes}, expected {want}")
@@ -705,8 +710,9 @@ def phase_timing_bwd(card) -> dict:
     """At each training shape (bf16, causal, q/k/v the views of a fused
     QKV output): the forward with the LSE held against the plain forward
     (O and LSE), dq and dkv held against the plain backward, then timed:
-    dq, dkv and the two together, the forward with the LSE and SDPA's
-    forward in CUDA graphs; the plain forward and backward, and SDPA's
+    dq, dkv, the two together and ``_bwd_operands`` alone (Delta and the
+    checks, the rest of the pair's time), the forward with the LSE and
+    SDPA's forward in CUDA graphs; the plain forward and backward, and SDPA's
     backward (fwd+bwd minus fwd, timed as a yardstick, never called by
     the port) from back-to-back launches; each kernel beside its bound.  Returns, per kernel, its JSON fields at each
     shape."""
@@ -753,6 +759,8 @@ def phase_timing_bwd(card) -> dict:
                     q, k, v, *ops, True, scale)),
                 "bwd": graph_ms(lambda: attn._flash_bwd_cuda(
                     q, k, v, out, lse, d_out, True, scale)),
+                "operands": graph_ms(lambda: attn._bwd_operands(
+                    q, k, v, out, lse, d_out, True)),
                 "fwd_lse": graph_ms(lambda: attn._flash_fwd_cuda(
                     q, k, v, True, scale, True)),
                 "plain_fwd": cuda_ms(
@@ -792,7 +800,8 @@ def phase_timing_bwd(card) -> dict:
             f"{bounds['dq'][1]}); dkv {t['dkv']:.4f} ms (bound "
             f"{bounds['dkv'][0]:.4f}, {bounds['dkv'][1]}); dq+dkv (with "
             f"Delta) {t['bwd']:.4f} ms (bound of the backward "
-            f"{bounds['bwd'][0]:.4f}, {bounds['bwd'][1]}); fwd+LSE "
+            f"{bounds['bwd'][0]:.4f}, {bounds['bwd'][1]}), of which "
+            f"_bwd_operands (Delta, checks) {t['operands']:.4f} ms; fwd+LSE "
             f"{t['fwd_lse']:.4f} ms (bound {bounds['fwd'][0]:.4f}, "
             f"{bounds['fwd'][1]}); plain forward+LSE {t['plain_fwd']:.4f} "
             f"ms; plain backward {t['plain_bwd']:.4f} ms; SDPA backward "
@@ -827,6 +836,76 @@ def phase_timing_bwd(card) -> dict:
     return by_shape
 
 
+def phase_timing_fp32(card):
+    """The fp32 kernels (the FMA routes) at the fp32 step's attention
+    shape (1x12x1024x64, causal, q/k/v the views of a fused QKV output):
+    the forward with the LSE, dq and dkv, each held against its plain
+    version and timed in a CUDA graph beside its bound (fp32 at the FMA
+    rate), the plain versions and SDPA in fp32 (TF32 off, as
+    phase_device sets it; its backward as forward+backward minus
+    forward, from back-to-back launches)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    q, k, v = fused_qkv(*PATH_SHAPE, torch.float32, gen)
+    d_out = torch.randn(q.shape, device="cuda", generator=gen)
+    scale = PATH_SHAPE[-1] ** -0.5
+    with torch.no_grad():
+        out, lse = attn._flash_fwd_cuda(q, k, v, True, scale, True)
+        out_ref, lse_ref = attn.flash_attention_reference(q, k, v, True,
+                                                          scale, True)
+        ops = attn._bwd_operands(q, k, v, out, lse, d_out, True)
+        got = (attn._flash_dq_cuda(q, k, v, *ops, True, scale),
+               *attn._flash_dkv_cuda(q, k, v, *ops, True, scale))
+        want = attn.flash_attention_backward_reference(q, k, v, out, lse,
+                                                       d_out, True)
+        errs = {"fwd": max(kernel_error(out, out_ref),
+                           (lse - lse_ref).abs().max().item()),
+                "dq": bwd_error(got[0], want[0]),
+                "dkv": max(bwd_error(got[1], want[1]),
+                           bwd_error(got[2], want[2]))}
+        if not max(errs.values()) <= BWD_TOL[torch.float32]:
+            raise AssertionError(f"fp32 kernels disagree at "
+                                 f"{PATH_SHAPE}: {errs}")
+        del out_ref, lse_ref, got, want
+        t = {"fwd": graph_ms(lambda: attn._flash_fwd_cuda(
+                 q, k, v, True, scale, True)),
+             "dq": graph_ms(lambda: attn._flash_dq_cuda(
+                 q, k, v, *ops, True, scale)),
+             "dkv": graph_ms(lambda: attn._flash_dkv_cuda(
+                 q, k, v, *ops, True, scale)),
+             "plain_fwd": cuda_ms(lambda: attn.flash_attention_reference(
+                 q, k, v, True, scale, True), iters=10),
+             "plain_bwd": cuda_ms(
+                 lambda: attn.flash_attention_backward_reference(
+                     q, k, v, out, lse, d_out, True), iters=10)}
+    leaves = [x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v)]
+    d_out_t = d_out.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        torch.autograd.grad(o, leaves, d_out_t)
+
+    with torch.no_grad():
+        sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+            *leaves, is_causal=True), iters=20)
+        sdpa_fwd_graph = graph_ms(lambda: F.scaled_dot_product_attention(
+            *leaves, is_causal=True))
+    sdpa_bwd = cuda_ms(sdpa_fwd_bwd, iters=20) - sdpa_fwd
+    routes = {name: r["float32"] for name, r in routes_by_dtype().items()}
+    parts = []
+    for name, kernel in (("fwd", "flash_fwd"), ("dq", "flash_dq"),
+                         ("dkv", "flash_dkv")):
+        bound_ms, bound_by = flash_bound(q, True, name, with_lse=True)
+        parts.append(f"{name}{'+LSE' if name == 'fwd' else ''} "
+                     f"({routes[kernel]}) {t[name]:.4f} ms, "
+                     f"{rate_line(q, True, name, t[name], True)}, error "
+                     f"{errs[name]:.3g}")
+    log(f"[timing-fp32] {card} | 1x12x1024x64 fp32 causal fused, TF32 off: "
+        f"{'; '.join(parts)} (atol {BWD_TOL[torch.float32]}); plain "
+        f"forward+LSE {t['plain_fwd']:.4f} ms, plain backward "
+        f"{t['plain_bwd']:.4f} ms; SDPA fp32 forward {sdpa_fwd_graph:.4f} "
+        f"ms, backward {sdpa_bwd:.4f} ms")
+
+
 def main():
     t0 = time.perf_counter()
     phase_device()
@@ -840,6 +919,7 @@ def main():
     phase_train_fp32()
     timing = phase_timing(card)
     timing_bwd = phase_timing_bwd(card)
+    phase_timing_fp32(card)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     by_path = {"serve": {"flash_fwd": serve_launches},
                **{f"train {tag}": n for tag, n in train_launches.items()}}

@@ -65,7 +65,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
 }
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
-_lock = threading.Lock()
+# One lock a source, so that different sources build at the same time.
+_locks = {name: threading.Lock() for name in SIGNATURES}
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -116,7 +117,7 @@ def build_command(name: str, out: Path) -> list:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    with _lock:
+    with _locks[name]:
         lib = _loaded.get(name)
         if lib is not None:
             return lib

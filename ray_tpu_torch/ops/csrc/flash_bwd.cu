@@ -27,19 +27,44 @@
 //
 // Routes, chosen by dtype in the C entries (rtt_flash_dq_route and
 // rtt_flash_dkv_route name them); none falls back to another:
-//   dq:  FMA in both dtypes (flash_dq_kernel).
+//   dq:  wgmma in bf16 (flash_dq_wgmma), FMA in fp32 (flash_dq_kernel).
 //   dkv: wgmma in bf16 (flash_dkv_wgmma), FMA in fp32 (flash_dkv_kernel).
+// The bf16 kernels read q, k, v and dO through TMA tensor maps of the
+// strided views, so base pointers and strides must be multiples of 16
+// bytes; an entry returns -1 for a view the hardware cannot describe.
 //
+// bf16 dq on the tensor cores, in the forward's frame: one warpgroup per
+// (64-row Q tile, batch*head); the Q rows are wgmma's M rows.
+//   - Q and dO are loaded once by TMA, and each thread reads the LSE and
+//     Delta of its two rows into registers.  K tiles stream through a
+//     3-slot ring and V tiles through a 2-slot ring of TMA loads that
+//     complete on an mbarrier per slot (128-byte swizzle).  K tile t is
+//     read by S_t and by dQ += dS_t K_t, which runs during the next
+//     iteration, hence its third slot; V is read by dP_t alone.  Thread 0
+//     starts tile t + 2 of both as soon as the block is done with iteration
+//     t, a whole iteration ahead of its use.  Under causal, the blocks of
+//     the last Q tiles (the most K tiles) are started first.
+//   - S = Q K^T and dP = dO V^T: wgmma m64n64k16, A = the Q or dO tile,
+//     B = the K or V tile, all K-major in shared memory (the forward's S).
+//   - dS = P (dP - Delta) * scale is formed on the fp32 accumulators, in
+//     log2 units (one FFMA and one ex2 a score, LSE taken to log2 units; a
+//     masked score is -inf, so its p is exactly 0), rounded to bf16 and
+//     packed pairwise into A fragments.
+//   - dQ += round(dS) K: wgmma m64nDk16 with A from registers and B = the
+//     same K tile read MN-major, as the forward reads V for P V; so one
+//     bf16 copy of each K tile serves both its uses.  dQ accumulates in
+//     fp32 registers and is written once, in bf16.
+//   - S and dP of tile t are started together with dQ += dS K of tile
+//     t - 1, and dS of tile t is formed while that product runs.
+//   Shared memory: 2 x 8 + 3 x 8 + 2 x 8 KB at D = 64, twice that at D = 128
+//   (plus 1 KB of alignment slack).
 // bf16 dkv on the tensor cores, in the transposed frame: one warpgroup per
 // (64-key K tile, batch*head); the keys are wgmma's M rows.
 //   - K and V are loaded once by TMA; the Q and dO tiles, with their 64
 //     LSE and 64 Delta values (bulk copies), stream through a 2-stage ring
-//     of TMA loads that complete on an mbarrier per stage (128-byte
-//     swizzle; the tensor maps describe the strided views, so base and
-//     strides must be multiples of 16 bytes).  Thread 0 starts tile i + 2
-//     as soon as the block is done with tile i.
-//   - Scores in log2 units: P^T is one FFMA and one ex2 a score, with LSE
-//     taken to log2 units; a masked score is -inf, so its p is exactly 0.
+//     of TMA loads that complete on an mbarrier per stage.  Thread 0 starts
+//     tile i + 2 as soon as the block is done with tile i.
+//   - Scores in log2 units, as for dq.
 //   - S^T = K Q^T and dP^T = V dO^T: wgmma m64n64k16, A = K or V, B = the
 //     Q or dO tile, both K-major in shared memory.
 //   - P^T = exp(S^T * scale - LSE) and dS^T = P^T (dP^T - Delta) * scale
@@ -52,16 +77,16 @@
 //     restages each Q tile transposed, then row-major).  dK and dV
 //     accumulate in fp32 registers and are written once, in bf16.
 //   Shared memory: 16 + 2 x 16.5 KB at D = 64, 32 + 2 x 32.5 KB at D = 128.
-// FMA kernels (dq in both dtypes, dkv in fp32): 256 threads per block in a
-// 16 x 16 grid of 4 x 4 register micro-tiles, 64-row tiles, operands
-// staged through shared memory as fp32, every product a plain fp32 FMA.
+// fp32 FMA kernels: 256 threads per block in a 16 x 16 grid of 4 x 4
+// register micro-tiles, 64-row tiles, operands staged through shared
+// memory, every product a plain fp32 FMA.
 //   dq:  Q^T and dO^T stay in shared memory; each K tile is staged as
 //        K^T, V^T (for S and dP) and K (for dS K); dS goes through shared
 //        memory transposed.  ~103 KB at D = 64, ~189 KB at D = 128.
 //   dkv: K^T and V^T stay; each Q tile is staged first as Q^T, dO^T (for
 //        S^T and dP^T), then, in the same buffer, as Q and dO row-major
-//        (for dK and dV), which keeps D = 128 at ~174 KB.  round(P) and dS
-//        go through shared memory.
+//        (for dK and dV), which keeps D = 128 at ~174 KB.  P and dS go
+//        through shared memory.
 // fp32 keeps FMA on purpose: it is the reference-precision route (TF32 on
 // the tensor cores keeps about 3 digits), which the card-vs-CPU fp32
 // training step holds at 1e-4.
@@ -70,14 +95,18 @@
 // 6*D (dq) and 8*D (dkv) FLOPs per visible (q, k) pair against a few
 // hundred bytes per row, so the H100 bound is operations at the bf16
 // tensor-core rate (989 TFLOP/s).  The FMA kernels are bound instead by
-// the fp32 FMA rate (67 TFLOP/s peak) and by shared-memory reads.  The
-// wgmma dkv serialises, within its warpgroup, the two score products, the
-// elementwise P/dS pass and the two gradient products; other blocks on
-// the SM fill the tensor cores meanwhile.  Left on the table: dq on the
-// tensor cores (next), or dQ accumulated in this loop (atomics or a second
-// pass) so that S and dP are computed once instead of twice; warp
-// specialisation (a producer warp with setmaxnreg, two consumer
-// warpgroups); a persistent schedule; TMA stores of dK and dV.
+// the fp32 FMA rate (67 TFLOP/s peak) and by shared-memory reads.  Each
+// wgmma kernel keeps one warpgroup a block, so its producer is a thread of
+// the consumers and each refill waits for a block barrier, and dkv
+// serialises its score products, its elementwise pass and its gradient
+// products; other blocks on the SM fill the tensor cores meanwhile.  The
+// split recomputes S and dP in both kernels (4*D of their 14*D FLOPs a
+// pair) to keep one writer per output tile and sums in a fixed order.
+// Left on the table: warp specialisation (a producer warp with setmaxnreg,
+// two consumer warpgroups in ping-pong), 128-wide K tiles, a persistent
+// schedule over the causal triangle, TMA stores of the outputs; and dQ
+// accumulated inside the dkv loop (atomics, or a partial per K tile and a
+// second pass), which would compute S and dP once.
 #include "sm90.cuh"
 
 namespace {
@@ -93,31 +122,13 @@ __device__ __forceinline__ void load4(const float* p, float out[4]) {
   out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float out[4]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
-}
-
 __device__ __forceinline__ void store4(float* p, const float in[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float in[4]) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(in[0], in[1]);
-  __nv_bfloat162 b = __floats2bfloat162_rn(in[2], in[3]);
-  uint2 v;
-  v.x = *reinterpret_cast<unsigned int*>(&a);
-  v.y = *reinterpret_cast<unsigned int*>(&b);
-  *reinterpret_cast<uint2*>(p) = v;
-}
-
-// Round to the storage dtype and back (identity for fp32).
+// Round to the storage dtype and back: the identity, as the FMA kernels
+// are instantiated for fp32 only (bf16 takes the wgmma kernels).
 __device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // Stage a [kBlock, D] tile of a strided [L, D] head into shared memory as
 // fp32: transposed ([D][kLd]) or row-major ([kBlock][D]).
@@ -612,6 +623,240 @@ flash_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ------------------------------------------------------ bf16 dq: wgmma
+// In the forward's frame: the 64 rows of the block's Q tile are wgmma's M
+// rows, so every product has its operands where wgmma takes them.
+//   S = Q K^T, dP = dO V^T  (A = the Q or dO tile, B = the K or V tile,
+//                            all K-major in shared memory);
+//   dQ += round(dS) K       (A = dS from registers, B = the same K tile
+//                            read MN-major, as the forward reads V).
+// The accumulator layout and the A fragment are as in flash_fwd.cu's
+// softmax_tile; LSE[q] and Delta[q] are per row here, two rows a thread,
+// held in registers.  K tile t is read by S_t and by dQ_t, which runs
+// during iteration t + 1, so the K ring has one slot more than V's.
+constexpr int kDqKStages = 3;
+constexpr int kDqVStages = 2;
+
+template <int D>
+constexpr int dq_wgmma_smem_bytes() {
+  // 1024 bytes of alignment slack, Q, dO, then the K and V rings.
+  return 1024 + (D / 64) * sm90::kSlabBytes * (2 + kDqKStages + kDqVStages);
+}
+
+// dS = P (dP - Delta) * scale for one tile, on the S and dP accumulators
+// (element e of a thread: row q_row0 + 8 * ((e / 2) % 2), column k_col0 +
+// 8 * (e / 4) + 2 * (lane % 4) + e % 2), rounded to bf16 and packed
+// pairwise into the A fragments of dS K: register j of k-step kk is the
+// pair e = 8 kk + 2 j.  P is exp2(s * scale * log2(e) - LSE * log2(e)):
+// one FFMA and one ex2; a masked score is -inf, so its p is exactly 0.
+__device__ __forceinline__ void ds_tile(const float (&s)[32], const float (&dp)[32],
+                                        uint32_t (&dsf)[4][4],
+                                        const float (&neg_lse2)[2],
+                                        const float (&delta)[2], bool masked,
+                                        int q_row0, int k_col0, int lane,
+                                        float scale_log2, float scale) {
+#pragma unroll
+  for (int e = 0; e < 32; e += 2) {
+    const int r = (e / 2) % 2;
+    float ds[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float sv = s[e + u];
+      if (masked && !(q_row0 + 8 * r >= k_col0 + 8 * (e / 4) + 2 * (lane % 4) + u))
+        sv = sm90::neg_inf();
+      const float p = sm90::ex2(fmaf(sv, scale_log2, neg_lse2[r]));
+      ds[u] = p * (dp[e + u] - delta[r]) * scale;
+    }
+    dsf[e / 8][(e % 8) / 2] = sm90::pack_bf16(ds[0], ds[1]);
+  }
+}
+
+// Software pipeline inside the warpgroup: S and dP of tile t are started
+// together with dQ += dS K of tile t - 1, so dS of tile t is formed while
+// the tensor cores do that product.  After iteration t, K slot (t - 1) % 3
+// (dQ of tile t - 1 done) and V slot t % 2 (dP of tile t done) are refilled
+// with tile t + 2, a whole iteration ahead of its use.
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kWgThreads)
+flash_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap tdo,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               __nv_bfloat16* __restrict__ dq, int H, int Lq, int Lk,
+               float scale) {
+  constexpr int kTileBytes = (D / 64) * sm90::kSlabBytes;
+  extern __shared__ float4 smem_raw[];  // as the FMA kernel declares it
+  __shared__ uint64_t bar_qdo, bar_k[kDqKStages], bar_v[kDqVStages];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(smem_raw);
+  smem += (1024 - (sm90::smem_u32(smem) & 1023)) & 1023;  // swizzle atoms
+  uint8_t* sQ = smem;
+  uint8_t* sdO = smem + kTileBytes;
+  uint8_t* sK = smem + 2 * kTileBytes;           // slot s at s * tile
+  uint8_t* sV = sK + kDqKStages * kTileBytes;     // slot s at s * tile
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  // The last Q tiles see the most K tiles under causal: start them first.
+  const int q_off = (gridDim.y - 1 - blockIdx.y) * kBlock;
+
+  const int num_k_tiles = Lk / kBlock;
+  int num_full = num_k_tiles, num_iter = num_k_tiles;
+  if (kCausal) {
+    // As _flash_dq_kernel: tiles wholly below the diagonal skip the mask,
+    // and the bound is clamped to the K tiles that exist.
+    num_full = min(q_off / kBlock, num_k_tiles);
+    num_iter = min((q_off + kBlock + kBlock - 1) / kBlock, num_k_tiles);
+  }
+
+  // One tile (a 4-D box per 64-column slab) into slot kt % stages.
+  auto load = [&](const CUtensorMap* map, uint8_t* ring, uint64_t* bars,
+                  int stages, int kt) {
+    uint64_t* bar = &bars[kt % stages];
+    uint8_t* dst = ring + (kt % stages) * kTileBytes;
+    sm90::mbar_expect_tx(bar, kTileBytes);
+#pragma unroll
+    for (int sl = 0; sl < D / 64; ++sl)
+      sm90::tma_load_4d(dst + sl * sm90::kSlabBytes, map, bar, 64 * sl, h,
+                        kt * kBlock, b);
+  };
+
+  if (tid == 0) {
+    sm90::mbar_init(&bar_qdo, 1);
+    for (int s = 0; s < kDqKStages; ++s) sm90::mbar_init(&bar_k[s], 1);
+    for (int s = 0; s < kDqVStages; ++s) sm90::mbar_init(&bar_v[s], 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    sm90::mbar_expect_tx(&bar_qdo, 2 * kTileBytes);
+#pragma unroll
+    for (int sl = 0; sl < D / 64; ++sl) {
+      sm90::tma_load_4d(sQ + sl * sm90::kSlabBytes, &tq, &bar_qdo, 64 * sl, h,
+                        q_off, b);
+      sm90::tma_load_4d(sdO + sl * sm90::kSlabBytes, &tdo, &bar_qdo, 64 * sl,
+                        h, q_off, b);
+    }
+    for (int kt = 0; kt < kDqKStages && kt < num_iter; ++kt)
+      load(&tk, sK, bar_k, kDqKStages, kt);
+    for (int kt = 0; kt < kDqVStages && kt < num_iter; ++kt)
+      load(&tv, sV, bar_v, kDqVStages, kt);
+  }
+
+  const int r0 = 16 * warp + lane / 4;  // this thread's rows: r0, r0 + 8
+  const float scale_log2 = scale * sm90::kLog2e;
+  float neg_lse2[2], row_delta[2];  // the LSE in log2 units, negated
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long row = (long long)bh * Lq + q_off + r0 + 8 * r;
+    neg_lse2[r] = -lse[row] * sm90::kLog2e;
+    row_delta[r] = delta[row];
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  float s[32], dp[32];
+  uint32_t dsf[4][4];
+
+  // S and dP of tile kt: four (D = 64) or eight k-steps of 16 over D each.
+  auto mma_s_dp = [&](int kt) {
+    const uint8_t* k_tile = sK + (kt % kDqKStages) * kTileBytes;
+    const uint8_t* v_tile = sV + (kt % kDqVStages) * kTileBytes;
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      sm90::wgmma_ss_m64n64k16(s, sm90::desc_kmajor(sQ, k),
+                               sm90::desc_kmajor(k_tile, k), k);
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      sm90::wgmma_ss_m64n64k16(dp, sm90::desc_kmajor(sdO, k),
+                               sm90::desc_kmajor(v_tile, k), k);
+  };
+  // dQ += round(dS) K of tile kt: four k-steps of 16 keys.
+  auto mma_dq = [&](int kt) {
+    const uint8_t* k_tile = sK + (kt % kDqKStages) * kTileBytes;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm90::wgmma_rs_bmn<D>(acc, dsf[kk], sm90::desc_mnmajor(k_tile, kk));
+  };
+  auto wait_kv = [&](int kt) {
+    sm90::mbar_wait(&bar_k[kt % kDqKStages], (kt / kDqKStages) & 1);
+    sm90::mbar_wait(&bar_v[kt % kDqVStages], (kt / kDqVStages) & 1);
+  };
+  // After iteration kt (every warp past it): V tile kt + 2 into the slot
+  // dP of tile kt read, K tile kt + 2 into the slot dQ of tile kt - 1 read
+  // (K tiles 0-2 were loaded up front).
+  auto refill = [&](int kt) {
+    if (tid != 0 || kt + 2 >= num_iter) return;
+    load(&tv, sV, bar_v, kDqVStages, kt + 2);
+    if (kt >= 1) load(&tk, sK, bar_k, kDqKStages, kt + 2);
+  };
+
+  sm90::mbar_wait(&bar_qdo, 0);
+  wait_kv(0);
+  sm90::wgmma_fence();
+  mma_s_dp(0);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_operands(s);
+  sm90::fence_operands(dp);
+  ds_tile(s, dp, dsf, neg_lse2, row_delta, kCausal && 0 >= num_full,
+          q_off + r0, 0, lane, scale_log2, scale);
+  __syncthreads();
+  refill(0);
+
+  for (int kt = 1; kt < num_iter; ++kt) {
+    wait_kv(kt);
+    sm90::fence_operands(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) sm90::fence_operands(dsf[kk]);
+    sm90::wgmma_fence();
+    mma_s_dp(kt);
+    sm90::wgmma_commit();
+    mma_dq(kt - 1);
+    sm90::wgmma_commit();
+
+    // dS of tile kt while dQ += dS K of tile kt - 1 runs.
+    sm90::wgmma_wait<1>();
+    sm90::fence_operands(s);
+    sm90::fence_operands(dp);
+    uint32_t dsn[4][4];
+    ds_tile(s, dp, dsn, neg_lse2, row_delta, kCausal && kt >= num_full,
+            q_off + r0, kt * kBlock, lane, scale_log2, scale);
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) sm90::fence_operands(dsf[kk]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dsf[kk][j] = dsn[kk][j];
+
+    __syncthreads();
+    refill(kt);
+  }
+
+  // dQ += dS K of the last tile.
+  sm90::fence_operands(acc);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) sm90::fence_operands(dsf[kk]);
+  sm90::wgmma_fence();
+  mma_dq(num_iter - 1);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_operands(acc);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    __nv_bfloat16* out = dq + (((long long)b * Lq + q_off + r0 + 8 * r) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * (lane % 4)) =
+          sm90::pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
 template <typename Kernel>
 int set_smem(Kernel kernel, int bytes) {
   return (int)cudaFuncSetAttribute(
@@ -681,9 +926,30 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// dq keeps the FMA kernel in both dtypes; dkv takes wgmma in bf16.
-Route dq_route(int dtype) { return dtype == 0 || dtype == 1 ? kFma : kNone; }
-Route dkv_route(int dtype) {
+template <int D, bool kCausal>
+int launch_dq_wgmma(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dq, int B, int H, int Lq, int Lk,
+                    const long long* st, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (make_bhld_tensor_map(&tq, q, B, H, Lq, D, st[0], st[1], st[2]) ||
+      make_bhld_tensor_map(&tk, k, B, H, Lk, D, st[3], st[4], st[5]) ||
+      make_bhld_tensor_map(&tv, v, B, H, Lk, D, st[6], st[7], st[8]) ||
+      make_bhld_tensor_map(&tdo, dout, B, H, Lq, D, st[9], st[10], st[11]))
+    return -1;
+  auto kernel = flash_dq_wgmma<D, kCausal>;
+  const int smem = dq_wgmma_smem_bytes<D>();
+  const int err = set_smem(kernel, smem);
+  if (err != 0) return err;
+  const dim3 grid(B * H, Lq / kBlock);
+  kernel<<<grid, kWgThreads, smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dq), H, Lq,
+      Lk, scale);
+  return (int)cudaGetLastError();
+}
+
+// Both entries: wgmma in bf16, FMA in fp32.
+Route route_of(int dtype) {
   return dtype == 0 ? kFma : dtype == 1 ? kWgmma : kNone;
 }
 
@@ -709,12 +975,14 @@ int rtt_flash_dq(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RTT_DQ(T, DIM, C) \
   launch_dq<T, DIM, C>(q, k, v, dout, lse, delta, dq, B, H, Lq, Lk, strides, scale, s)
-  if (dtype == 0 && D == 64) return causal ? RTT_DQ(float, 64, true) : RTT_DQ(float, 64, false);
-  if (dtype == 0 && D == 128) return causal ? RTT_DQ(float, 128, true) : RTT_DQ(float, 128, false);
-  if (dtype == 1 && D == 64)
-    return causal ? RTT_DQ(__nv_bfloat16, 64, true) : RTT_DQ(__nv_bfloat16, 64, false);
-  if (dtype == 1 && D == 128)
-    return causal ? RTT_DQ(__nv_bfloat16, 128, true) : RTT_DQ(__nv_bfloat16, 128, false);
+#define RTT_DQ_WG(DIM, C) \
+  launch_dq_wgmma<DIM, C>(q, k, v, dout, lse, delta, dq, B, H, Lq, Lk, strides, scale, s)
+  const Route route = route_of(dtype);
+  if (route == kFma && D == 64) return causal ? RTT_DQ(float, 64, true) : RTT_DQ(float, 64, false);
+  if (route == kFma && D == 128) return causal ? RTT_DQ(float, 128, true) : RTT_DQ(float, 128, false);
+  if (route == kWgmma && D == 64) return causal ? RTT_DQ_WG(64, true) : RTT_DQ_WG(64, false);
+  if (route == kWgmma && D == 128) return causal ? RTT_DQ_WG(128, true) : RTT_DQ_WG(128, false);
+#undef RTT_DQ_WG
 #undef RTT_DQ
   return -1;
 }
@@ -733,7 +1001,7 @@ int rtt_flash_dkv(const void* q, const void* k, const void* v,
   launch_dkv<T, DIM, C>(q, k, v, dout, lse, delta, dk, dv, B, H, Lq, Lk, strides, scale, s)
 #define RTT_DKV_WG(DIM, C) \
   launch_dkv_wgmma<DIM, C>(q, k, v, dout, lse, delta, dk, dv, B, H, Lq, Lk, strides, scale, s)
-  const Route route = dkv_route(dtype);
+  const Route route = route_of(dtype);
   if (route == kFma && D == 64) return causal ? RTT_DKV(float, 64, true) : RTT_DKV(float, 64, false);
   if (route == kFma && D == 128) return causal ? RTT_DKV(float, 128, true) : RTT_DKV(float, 128, false);
   if (route == kWgmma && D == 64) return causal ? RTT_DKV_WG(64, true) : RTT_DKV_WG(64, false);
@@ -744,8 +1012,8 @@ int rtt_flash_dkv(const void* q, const void* k, const void* v,
 }
 
 // The route each entry takes for a dtype code: "fma", "wgmma" or "".
-const char* rtt_flash_dq_route(int dtype) { return route_name(dq_route(dtype)); }
-const char* rtt_flash_dkv_route(int dtype) { return route_name(dkv_route(dtype)); }
+const char* rtt_flash_dq_route(int dtype) { return route_name(route_of(dtype)); }
+const char* rtt_flash_dkv_route(int dtype) { return route_name(route_of(dtype)); }
 
 const char* rtt_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

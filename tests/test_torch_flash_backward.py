@@ -136,13 +136,19 @@ def test_backward_reference_matches_pallas_kernels(causal, d):
                                    err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("causal", [True, False])
-def test_backward_reference_matches_pallas_kernels_bf16(causal):
+# D = 64 keeps the ids the test had before D = 128 was added.
+@pytest.mark.parametrize("causal,d", [
+    pytest.param(True, 64, id="True"), pytest.param(False, 64, id="False"),
+    pytest.param(True, 128, id="True-128"),
+    pytest.param(False, 128, id="False-128")])
+def test_backward_reference_matches_pallas_kernels_bf16(causal, d):
     """The same pair in bf16: the rounding points (dS to bf16 before dS K
     and dS^T Q, P to bf16 before P^T dO, the outputs in bf16) match the
-    TPU kernels'.  Bounds: see BF16_ROW_REL and BF16_EQUAL_FRACTION."""
-    b, h, length, d = 2, 2, 256, 64
-    arrays = _arrays(7 + causal, *[(b, length, h, d)] * 4)
+    TPU kernels'.  D = 128 is the Hopper kernels' two-slab case (a head
+    row spans two 64-column swizzled slabs).  Bounds: see BF16_ROW_REL
+    and BF16_EQUAL_FRACTION."""
+    b, h, length = 2, 2, 256
+    arrays = _arrays(7 + causal + (d != 64) * 64, *[(b, length, h, d)] * 4)
     (q, k, v, out, lse, do), want = _jax_backward(*arrays, causal,
                                                   jnp.bfloat16)
     bf = torch.bfloat16

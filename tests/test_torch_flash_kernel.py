@@ -118,9 +118,9 @@ def test_flash_backward_kernels_match_reference_on_cuda(dtype, tol, causal,
 
 @pytest.mark.cuda
 def test_bf16_routes_are_the_tensor_core_kernels_on_cuda():
-    """The C entries route bf16 forward and dkv to the wgmma kernels, dq
-    and every fp32 kernel to the FMA kernels; a step in each dtype
-    launches each kernel once."""
+    """The C entries route every bf16 kernel (forward, dq, dkv) to its
+    wgmma kernel and every fp32 kernel to its FMA kernel; a step in each
+    dtype launches each kernel once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from ray_tpu_torch.ops import _build
@@ -133,7 +133,7 @@ def test_bf16_routes_are_the_tensor_core_kernels_on_cuda():
               for dtype, code in tattn._DTYPE_CODES.items()}
     assert routes == {
         ("flash_fwd", "bfloat16"): "wgmma", ("flash_fwd", "float32"): "fma",
-        ("flash_dq", "bfloat16"): "fma", ("flash_dq", "float32"): "fma",
+        ("flash_dq", "bfloat16"): "wgmma", ("flash_dq", "float32"): "fma",
         ("flash_dkv", "bfloat16"): "wgmma", ("flash_dkv", "float32"): "fma"}
     for dtype in (torch.bfloat16, torch.float32):
         qkv = torch.randn(1, 128, 3 * 2 * 64, device="cuda").to(dtype)
@@ -144,3 +144,30 @@ def test_bf16_routes_are_the_tensor_core_kernels_on_cuda():
         torch.cuda.synchronize()
         assert {n: tattn.LAUNCHES[n] - before[n] for n in before} == {
             "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_dq_is_bitwise_deterministic_on_cuda(causal, d):
+    """Two launches of the bf16 dq kernel on the same operands give
+    bitwise-equal dq: each dQ tile has one writer that sums its K tiles in
+    a fixed order (no atomics), which a design that accumulated dQ from
+    several blocks would lose."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(d + 2)
+    qkv = torch.randn(2, 320, 3 * 4 * d, device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    q, k, v = (x.reshape(2, 320, 4, d) for x in qkv.split(4 * d, dim=-1))
+    d_out = torch.randn(q.shape, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+    scale = d ** -0.5
+    with torch.no_grad():
+        out, lse = tattn._flash_fwd_cuda(q, k, v, causal, scale, True)
+        ops = tattn._bwd_operands(q, k, v, out, lse, d_out, causal)
+        first = tattn._flash_dq_cuda(q, k, v, *ops, causal, scale)
+        second = tattn._flash_dq_cuda(q, k, v, *ops, causal, scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(first.float()).all()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
