@@ -5,7 +5,7 @@
 Builds the port's hand-written kernels from ``ray_tpu_torch/ops/csrc``
 (the flash-attention forward, and its dq and dkv backward), holds each
 against its plain PyTorch version on the card, then drives the port's
-two main paths with random weights from a seed:
+three main paths with random weights from a seed:
 
 - serving: GPT-2 small through ``LLMServer`` (the paged-KV
   ``LLMEngine``), token-identical in fp32 to ``NaiveLM(width=1024)``,
@@ -15,7 +15,12 @@ two main paths with random weights from a seed:
   ``adamw(3e-4)``, ``make_train_step``) at the JAX bench's two shapes,
   B=16 x S=1024 and B=4 x S=4096, every layer running the forward with
   the LSE and both backward kernels; then one fp32 step of a 2-layer
-  GPT-2 small on the card against the same step on the CPU.
+  GPT-2 small on the card against the same step on the CPU;
+- reinforcement learning (last, ``[ppo]``): Anakin PPO on
+  Breakout-Atari84 at ``bench.py::bench_ppo_atari84``'s configuration
+  (2048 envs x 64 steps, the Nature CNN, fp32), after its env and module
+  are held against the CPU; trained to the bench's reward floor, then
+  timed.  This path reaches none of the flash kernels (checked).
 
 Each C entry picks its kernel by dtype (every bf16 kernel: ``wgmma``;
 every fp32 kernel: ``fma``); the script checks and prints the routes
@@ -49,6 +54,8 @@ import torch.nn.functional as F
 from ray_tpu_torch.models import gpt2_loss_fn
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as attn
+from ray_tpu_torch.rllib import PPOConfig, RLModuleSpec
+from ray_tpu_torch.rllib.env.torch_envs import Breakout84
 from ray_tpu_torch.serve import LLMServer, NaiveLM, build_model
 from ray_tpu_torch.train import adamw, make_train_step
 
@@ -115,6 +122,22 @@ FIRST_LOSS_SLACK = 0.5
 FP32_STEP_LAYERS = 2
 FP32_LOSS_RTOL = 1e-5
 FP32_GRAD_REL = 1e-4
+# PPO: bench.py::bench_ppo_atari84 (:1085-1096) as it is, not cut.  The
+# gate is bench.py::_learn_to_floor's: one warm-up iteration, then the
+# CURRENT episode_reward_mean >= ATARI84_REWARD_FLOOR (bench.py:28) at an
+# iteration >= 10, within 150; then 8 timed iterations
+# (_measure_steps_per_s).
+PPO_ENVS, PPO_UNROLL = 2048, 64
+PPO_TRAINING = {"num_sgd_iter": 2, "sgd_minibatch_size": 8192, "lr": 5e-4,
+                "entropy_coeff": 0.01}
+PPO_PARAMS = 2_061_732  # the JAX module's count on Breakout-Atari84
+ATARI84_REWARD_FLOOR = 15.0
+PPO_MAX_ITERS = 150
+PPO_TIMED_ITERS = 8
+# The module's logits and value on the card against the CPU, fp32 with TF32
+# off: the same sums (fan-in up to 7744) in other orders, ~1e-6 relative;
+# held to 1e-4 of each output's largest magnitude.
+PPO_MODULE_RTOL = 1e-4
 
 
 def log(*args):
@@ -685,13 +708,16 @@ def phase_timing(card) -> dict:
         q32, k32, v32 = (x.float() for x in (q, k, v))
         ms32 = graph_ms(lambda: attn.flash_attention(q32, k32, v32,
                                                      causal=True))
+        plain32_ms = graph_ms(lambda: attn.flash_attention_reference(
+            q32, k32, v32, causal=True))
     bound_ms, bound_by = flash_bound(q, True)
     routes = routes_by_dtype()["flash_fwd"]
     log(f"[timing] {card} | flash_fwd 1x12x1024x64 bf16 causal: kernel "
         f"({routes['bfloat16']}) {ms:.4f} ms, "
         f"{rate_line(q, True, 'fwd', ms)}; plain {plain_ms:.4f} ms, SDPA "
         f"{sdpa_ms:.4f} ms; fp32 kernel ({routes['float32']}) {ms32:.4f} "
-        f"ms, {rate_line(q32, True, 'fwd', ms32)} (device times in CUDA "
+        f"ms, {rate_line(q32, True, 'fwd', ms32)}, plain fp32 "
+        f"{plain32_ms:.4f} ms (device times in CUDA "
         f"graphs; the bf16 call launched back to back from Python "
         f"{launch_ms:.4f} ms)")
     for length in (128, 256, 512, 1024, 2048, 4096):
@@ -906,6 +932,223 @@ def phase_timing_fp32(card):
         f"ms, backward {sdpa_bwd:.4f} ms")
 
 
+def _breakout_states(rng, n) -> dict:
+    """``n`` seeded Breakout84 states over the whole state space: walls of
+    every density (an eighth of them down to one brick, so that a hit can
+    clear the wall), the ball and paddle anywhere, t up to the limit."""
+    density = rng.random((n, 1, 1))
+    bricks = rng.random((n, 6, 12)) < density
+    last = np.arange(n) % 8 == 0
+    bricks[last] = False
+    bricks[last, rng.integers(0, 6, last.sum()),
+           rng.integers(0, 12, last.sum())] = True
+    ints = {"px": rng.integers(0, 77, n), "bx": rng.integers(0, 83, n),
+            "by": rng.integers(0, 83, n), "dx": rng.choice([-2, -1, 1, 2], n),
+            "dy": rng.choice([-2, 2], n), "lx": rng.integers(0, 83, n),
+            "ly": rng.integers(0, 83, n), "t": rng.integers(0, 2500, n)}
+    return {**{k: v.astype(np.int32) for k, v in ints.items()},
+            "bricks": bricks}
+
+
+def phase_ppo_parity():
+    """The PPO path's env and module, card against CPU: Breakout84's
+    ``step_core`` and render from the same seeded states and actions
+    (bitwise), then the module's logits and value on those frames (TF32
+    off) within ``PPO_MODULE_RTOL`` of each output's largest
+    magnitude."""
+    env = Breakout84()
+    rng = np.random.default_rng(SEED + 7)
+    states = _breakout_states(rng, PPO_ENVS)
+    actions = torch.from_numpy(rng.integers(0, 3, PPO_ENVS))
+    out = {}
+    for device in ("cuda", "cpu"):
+        stepped, reward, done = env.step_core(
+            {k: torch.from_numpy(v).to(device) for k, v in states.items()},
+            actions.to(device))
+        out[device] = {**stepped, "reward": reward, "done": done,
+                       "obs": env._obs(stepped)}
+    unequal = [k for k, v in out["cpu"].items()
+               if not torch.equal(out["cuda"][k].cpu(), v)]
+    if unequal:
+        raise AssertionError(f"[ppo] Breakout84 card != CPU in {unequal}")
+    cpu = out["cpu"]
+    respawned = int((~torch.from_numpy(states["bricks"]).flatten(1).all(1)
+                     & cpu["bricks"].flatten(1).all(1)).sum())
+    log(f"[ppo] Breakout84.step_core and render, card vs CPU: bitwise equal "
+        f"over {PPO_ENVS} seeded states ({int(cpu['done'].sum())} done, "
+        f"{int(cpu['reward'].sum())} bricks hit, {respawned} walls "
+        f"respawned)")
+    module = RLModuleSpec.for_env(env, ()).build(
+        torch.Generator().manual_seed(SEED))
+    frames = cpu["obs"][:256]
+    with torch.no_grad():
+        want = module(frames)
+        got = module.to("cuda")(frames.to("cuda"))
+    errs = [((g.cpu() - w).abs().max() / w.abs().max()).item()
+            for g, w in zip(got, want)]
+    log(f"[ppo] DiscreteActorCritic (Nature CNN) on 256 frames, card vs CPU, "
+        f"TF32 off: max |d| / max |ref| logits {errs[0]:.3g}, value "
+        f"{errs[1]:.3g} (bound {PPO_MODULE_RTOL})")
+    if not max(errs) <= PPO_MODULE_RTOL:
+        raise AssertionError(f"[ppo] module card != CPU: {errs}")
+
+
+# Device operations grouped by kernel name, first match wins: cuDNN's
+# layout transposes, then the convolution (direct, implicit-GEMM or FFT)
+# and GEMM kernels of cuDNN and cuBLAS; the rest (elementwise,
+# reductions, copies, RNG, Adam) is "other".
+DEVICE_GROUPS = (("layout", ("nhwcToNchw", "nchwToNhwc")),
+                 ("conv/gemm", ("cudnn", "conv", "gemm", "wgrad", "dgrad",
+                                "fprop", "xmma", "cutlass", "fft")))
+
+
+def profile_device(fn) -> dict:
+    """What ``fn()`` puts on the card, from ``torch.profiler``: the device
+    operations it ran (kernels, memsets, copies), the kernel-launch calls
+    the host made (``cudaLaunchKernel``, ``cuLaunchKernel``), the device
+    time summed over those operations (one stream: they do not overlap),
+    that time by ``DEVICE_GROUPS``, and the six operations that took the
+    most of it, with their counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    device = {e.key: (e.count, getattr(e, "self_device_time_total", getattr(
+        e, "self_cuda_time_total", 0)) / 1e3)
+              for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA}
+    top = sorted(device.items(), key=lambda kv: -kv[1][1])[:6]
+    groups = {}
+    for name, (_, ms) in device.items():
+        group = next((g for g, words in DEVICE_GROUPS if any(
+            w in name for w in words)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    return {"device_ops": sum(n for n, _ in device.values()),
+            "launch_calls": sum(e.count for e in events
+                                if "LaunchKernel" in e.key),
+            "device_ms": sum(ms for _, ms in device.values()),
+            "wall_ms": wall_ms, "top": top, "kinds": len(device),
+            "groups": groups}
+
+
+def phase_ppo(card) -> dict:
+    """The PPO path: ``PPOConfig()...build().train()`` on Breakout-Atari84
+    at bench.py's configuration, trained to the reward floor, then timed
+    (env-steps/s; the rollout, GAE and SGD of each iteration between CUDA
+    events; peak memory), then one env step and one iteration profiled
+    (launches an env step; the device's busy share)."""
+    zero_launches()
+    algo = (PPOConfig()
+            .environment("Breakout-Atari84-v0")
+            .anakin(num_envs=PPO_ENVS, unroll_length=PPO_UNROLL)
+            .training(**PPO_TRAINING)
+            .debugging(seed=SEED)
+            .build())
+    n_params = sum(p.numel() for p in algo.module.parameters())
+    if n_params != PPO_PARAMS:
+        raise AssertionError(f"[ppo] {n_params} parameters, expected "
+                             f"{PPO_PARAMS}")
+    t0 = time.perf_counter()
+    algo.train()  # warm-up, as _learn_to_floor
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    met_at, reward = None, float("nan")
+    for i in range(PPO_MAX_ITERS):
+        metrics = algo.train()
+        reward = metrics["episode_reward_mean"]
+        if not np.isfinite(metrics["total_loss"]):
+            raise AssertionError(f"[ppo] iteration {i}: {metrics}")
+        if i % 10 == 0:
+            log(f"[ppo] iteration {i}: episode_reward_mean {reward:.2f}, "
+                f"total_loss {metrics['total_loss']:.4f}, entropy "
+                f"{metrics['entropy']:.4f}, {metrics['time_this_iter_s']:.3f}"
+                f" s")
+        if i >= 10 and reward >= ATARI84_REWARD_FLOOR:
+            met_at = i
+            break
+    gate_s = time.perf_counter() - t0
+    if met_at is None:
+        raise AssertionError(
+            f"[ppo] reward {reward:.2f} < {ATARI84_REWARD_FLOOR} after "
+            f"{PPO_MAX_ITERS} iterations")
+    log(f"[ppo] reward floor {ATARI84_REWARD_FLOOR} met at iteration "
+        f"{met_at} (episode_reward_mean {reward:.2f}) in {gate_s:.1f} s, "
+        f"after a warm-up iteration of {warm_s:.2f} s")
+
+    marks = []
+
+    def mark(name):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append((name, event))
+
+    algo.on_phase = mark
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(PPO_TIMED_ITERS):
+        metrics = algo.train()
+    seconds = time.perf_counter() - t0
+    algo.on_phase = None
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    names = [name for name, _ in marks[:4]]
+    if names != ["start", "rollout", "gae", "sgd"] or \
+            len(marks) != 4 * PPO_TIMED_ITERS:
+        raise AssertionError(f"[ppo] phase marks {[n for n, _ in marks]}")
+    split = {name: np.mean([marks[i + k][1].elapsed_time(marks[i + k + 1][1])
+                            for i in range(0, len(marks), 4)])
+             for k, name in enumerate(("rollout", "gae", "sgd"))}
+    steps = PPO_TIMED_ITERS * PPO_ENVS * PPO_UNROLL
+    steps_per_s = steps / seconds
+
+    st = algo._anakin_state
+    env = Breakout84()
+    action = algo.module.forward_exploration(st.obs, st.generator)[0]
+    with torch.no_grad():
+        env_prof = profile_device(
+            lambda: env.step(st.env_states, action, st.generator))
+        policy_prof = profile_device(
+            lambda: algo.module.forward_exploration(st.obs, st.generator))
+    iter_prof = profile_device(algo.train)
+    iter_ms = seconds / PPO_TIMED_ITERS * 1e3
+    device_ms = iter_prof["device_ms"]
+    top = "; ".join(f"{name[:60]} x{n} {ms:.1f} ms ({ms / device_ms:.1%})"
+                    for name, (n, ms) in iter_prof["top"])
+    groups = ", ".join(f"{g} {ms:.1f} ms ({ms / device_ms:.1%})"
+                       for g, ms in sorted(iter_prof["groups"].items()))
+    if any(attn.LAUNCHES.values()):
+        raise AssertionError(f"[ppo] launched {attn.LAUNCHES}")
+    log(f"[ppo] {card} | PPO Breakout-Atari84 {PPO_ENVS} envs x "
+        f"{PPO_UNROLL} steps, Nature CNN ({n_params} parameters), fp32, "
+        f"TF32 off, eager: {PPO_TIMED_ITERS} iterations in {seconds:.3f} s ="
+        f" {steps_per_s:.0f} env-steps/s, {iter_ms:.1f} ms an iteration; "
+        f"split by CUDA events (ms an iteration): rollout "
+        f"(env step + action sampling) {split['rollout']:.1f}, GAE + "
+        f"normalisation {split['gae']:.1f}, SGD {split['sgd']:.1f}; an env "
+        f"step {env_prof['device_ops']} device ops "
+        f"({env_prof['launch_calls']} launch calls, "
+        f"{env_prof['device_ms']:.3f} ms on the device), the policy's "
+        f"forward and draw {policy_prof['device_ops']} "
+        f"({policy_prof['launch_calls']} launch calls, "
+        f"{policy_prof['device_ms']:.3f} ms); one profiled iteration: "
+        f"{iter_prof['device_ops']} device ops, device busy {device_ms:.1f}"
+        f" ms of its {iter_prof['wall_ms']:.1f} ms under the profiler "
+        f"({device_ms / iter_prof['wall_ms']:.1%}), {device_ms / iter_ms:.1%}"
+        f" of a timed iteration; peak memory {peak / 2**30:.2f} GiB; reward "
+        f"{metrics['episode_reward_mean']:.2f}; flash launches "
+        f"{dict(attn.LAUNCHES)}")
+    log(f"[ppo] {card} | the profiled iteration's device time by group: "
+        f"{groups}; the top 6 of {iter_prof['kinds']} kinds: {top}")
+    return {"env_steps_per_s": steps_per_s, "split_ms": split,
+            "reward_floor_met_at": met_at, "flash": dict(attn.LAUNCHES)}
+
+
 def main():
     t0 = time.perf_counter()
     phase_device()
@@ -920,9 +1163,12 @@ def main():
     timing = phase_timing(card)
     timing_bwd = phase_timing_bwd(card)
     phase_timing_fp32(card)
+    phase_ppo_parity()
+    ppo = phase_ppo(card)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     by_path = {"serve": {"flash_fwd": serve_launches},
-               **{f"train {tag}": n for tag, n in train_launches.items()}}
+               **{f"train {tag}": n for tag, n in train_launches.items()},
+               "ppo": ppo["flash"]}
     # dq's and dkv's top-level fields are those of the first training
     # shape; the forward's are the serving shape's.
     first = next(iter(timing_bwd["flash_dq"]))

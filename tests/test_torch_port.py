@@ -47,6 +47,7 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu(path):
 
 def test_entry_points_without_device_raise_when_there_is_no_cuda():
     from ray_tpu_torch import resolve_device
+    from ray_tpu_torch.rllib import PPOConfig
     from ray_tpu_torch.serve import LLMEngine, LLMServer, NaiveLM, build_model
 
     if torch.cuda.is_available():
@@ -57,7 +58,10 @@ def test_entry_points_without_device_raise_when_there_is_no_cuda():
              lambda: build_model("gpt2", seed=0),
              lambda: LLMEngine(cpu_model, start=False),
              lambda: NaiveLM(cpu_model, width=64),
-             lambda: LLMServer("gpt2", seed=0)]
+             lambda: LLMServer("gpt2", seed=0),
+             lambda: PPOConfig().environment("CartPole-v1").anakin(
+                 num_envs=4, unroll_length=4).build(),
+             lambda: PPOConfig().resources(device="cuda").build()]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
             call()
