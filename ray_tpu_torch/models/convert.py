@@ -19,6 +19,23 @@ names of ``ray_tpu/models/gpt2.py::_AXIS_BY_NAME``:
 - every Dense kernel ``[in, out]`` -> ``Linear.weight`` ``[out, in]``;
 - ``pi``, ``vf``, ``pi_mlp``, ``vf_mlp``, ``dense_{i}`` and ``out`` keep
   their names.
+
+``recurrent_actor_critic_from_flax``, for
+``ray_tpu_torch.rllib.algorithms.ppo_rnn.RecurrentActorCritic``:
+``embed_{pi,vf}`` (MLP) or ``cnn_{pi,vf}`` (CNN) and the heads as above;
+each ``OptimizedLSTMCell`` ``lstm_{pi,vf}`` (Dense layers ``ii if ig io``
+without bias, ``hi hf hg ho`` with bias) becomes one ``nn.LSTMCell``:
+``weight_ih`` the input kernels stacked in the order i, f, g, o,
+``weight_hh`` the recurrent ones, ``bias_hh`` their biases, ``bias_ih``
+zeros.
+
+``attention_actor_critic_from_flax``, for
+``ray_tpu_torch.rllib.algorithms.ppo_attn.AttentionActorCritic``:
+``pos_{pi,vf}`` as they are; in each ``block_{tag}_{i}``, the
+LayerNorms' ``scale`` -> ``weight``, the GRU gates' Dense kernels, and
+the attention's ``query``/``key``/``value`` kernels ``[d, heads,
+head_dim]`` (bias ``[heads, head_dim]``) and ``out`` kernel ``[heads,
+head_dim, d]``, flattened to ``[in, out]`` and transposed.
 """
 from __future__ import annotations
 
@@ -83,27 +100,102 @@ def actor_critic_from_flax(tree: Mapping[str, Any]
     if set(tree) == {"params"}:
         tree = tree["params"]
     out: Dict[str, torch.Tensor] = {}
+    _rl_walk(tree, out, "", lambda *args: False, known=_RL_MODULES)
+    return out
 
-    def walk(sub: Mapping[str, Any], prefix: str):
-        if set(sub) == {"kernel", "bias"}:
-            kernel = np.asarray(sub["kernel"])
+
+def _rl_walk(tree: Mapping[str, Any], out: Dict[str, torch.Tensor],
+             prefix: str, leaf, known=None) -> None:
+    """Walks a flax RL param tree into ``out``: a Dense or Conv leaf dict
+    (``kernel`` and an optional ``bias``) becomes ``.weight``/``.bias``;
+    ``leaf(prefix, name, child, out)`` may claim any other entry
+    (returning True) before the walk descends into it.  With ``known``
+    (a pattern), a module name it does not match raises ``KeyError``;
+    without, a name the port's module lacks fails its
+    ``load_state_dict``."""
+    for name, child in tree.items():
+        if leaf(prefix, name, child, out):
+            continue
+        name = _RL_RENAMES.get(name, re.sub(
+            r"^(Conv|Dense)_(\d+)$",
+            lambda m: f"{m.group(1).lower()}_{m.group(2)}", name))
+        path = f"{prefix}.{name}" if prefix else name
+        if not isinstance(child, Mapping) or (
+                known is not None and not known.fullmatch(name)):
+            raise KeyError(f"unknown RL parameter {path}")
+        if "kernel" in child:
+            if not set(child) <= {"kernel", "bias"}:
+                raise KeyError(f"{path}: expected kernel/bias, got "
+                               f"{sorted(child)}")
+            kernel = np.asarray(child["kernel"])
             if kernel.ndim == 4:  # HWIO -> OIHW
                 kernel = kernel.transpose(3, 2, 0, 1)
-            elif kernel.ndim == 2:  # [in, out] -> [out, in]
+            elif kernel.ndim == 2:
                 kernel = kernel.T
             else:
-                raise KeyError(f"{prefix}: kernel of rank {kernel.ndim}")
-            out[f"{prefix}.weight"] = _tensor(kernel)
-            out[f"{prefix}.bias"] = _tensor(sub["bias"])
-            return
-        for name, child in sub.items():
-            name = _RL_RENAMES.get(name, re.sub(
-                r"^(Conv|Dense)_(\d+)$",
-                lambda m: f"{m.group(1).lower()}_{m.group(2)}", name))
-            if not _RL_MODULES.fullmatch(name) or not isinstance(
-                    child, Mapping):
-                raise KeyError(f"unknown RL parameter {prefix}/{name}")
-            walk(child, f"{prefix}.{name}" if prefix else name)
+                raise KeyError(f"{path}: kernel of rank {kernel.ndim}")
+            out[f"{path}.weight"] = _tensor(kernel)
+            if "bias" in child:
+                out[f"{path}.bias"] = _tensor(child["bias"])
+        else:
+            _rl_walk(child, out, path, leaf)
 
-    walk(tree, "")
+
+_LSTM_GATES = "ifgo"
+
+
+def _lstm_leaf(prefix, name, child, out) -> bool:
+    if not re.fullmatch(r"lstm_(pi|vf)", name):
+        return False
+    want = {f"i{g}" for g in _LSTM_GATES} | {f"h{g}" for g in _LSTM_GATES}
+    if set(child) != want:
+        raise KeyError(f"{name}: expected {sorted(want)}, got "
+                       f"{sorted(child)}")
+    size = np.asarray(child["hi"]["kernel"]).shape[1]
+    out[f"{name}.weight_ih"] = _tensor(np.concatenate(
+        [np.asarray(child[f"i{g}"]["kernel"]).T for g in _LSTM_GATES]))
+    out[f"{name}.weight_hh"] = _tensor(np.concatenate(
+        [np.asarray(child[f"h{g}"]["kernel"]).T for g in _LSTM_GATES]))
+    out[f"{name}.bias_hh"] = _tensor(np.concatenate(
+        [np.asarray(child[f"h{g}"]["bias"]) for g in _LSTM_GATES]))
+    out[f"{name}.bias_ih"] = torch.zeros(4 * size)
+    return True
+
+
+def recurrent_actor_critic_from_flax(tree: Mapping[str, Any]
+                                     ) -> Dict[str, torch.Tensor]:
+    """flax ``RecurrentActorCritic`` params -> port state_dict."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out: Dict[str, torch.Tensor] = {}
+    _rl_walk(tree, out, "", _lstm_leaf)
+    return out
+
+
+def _attention_leaf(prefix, name, child, out) -> bool:
+    path = f"{prefix}.{name}" if prefix else name
+    if re.fullmatch(r"pos_(pi|vf)", name):
+        out[path] = _tensor(child)
+        return True
+    if re.fullmatch(r"LayerNorm_\d+", name):
+        _norm(path, child, out)
+        return True
+    if name in ("query", "key", "value", "out") and prefix.endswith(".mha"):
+        kernel = np.asarray(child["kernel"])
+        d_in = kernel.shape[0] if name != "out" else -1
+        flat = (kernel.reshape(d_in, -1) if name != "out"
+                else kernel.reshape(-1, kernel.shape[-1]))
+        out[f"{path}.weight"] = _tensor(flat.T)
+        out[f"{path}.bias"] = _tensor(np.asarray(child["bias"]).reshape(-1))
+        return True
+    return False
+
+
+def attention_actor_critic_from_flax(tree: Mapping[str, Any]
+                                     ) -> Dict[str, torch.Tensor]:
+    """flax ``AttentionActorCritic`` params -> port state_dict."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out: Dict[str, torch.Tensor] = {}
+    _rl_walk(tree, out, "", _attention_leaf)
     return out

@@ -40,12 +40,16 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
 
 
 def dense(in_features: int, out_features: int,
-          generator: Optional[torch.Generator] = None) -> nn.Linear:
-    """An ``nn.Linear`` initialised as ``flax.linen.Dense`` is."""
-    layer = nn.utils.skip_init(nn.Linear, in_features, out_features)
+          generator: Optional[torch.Generator] = None,
+          bias: bool = True) -> nn.Linear:
+    """An ``nn.Linear`` initialised as ``flax.linen.Dense`` is (``bias``
+    is its ``use_bias``)."""
+    layer = nn.utils.skip_init(nn.Linear, in_features, out_features,
+                               bias=bias)
     lecun_normal_(layer.weight, in_features, generator)
-    with torch.no_grad():
-        layer.bias.zero_()
+    if bias:
+        with torch.no_grad():
+            layer.bias.zero_()
     return layer
 
 

@@ -1,10 +1,12 @@
 """Pixel trunks for RL (counterpart of ``ray_tpu/models/nature_cnn.py``).
 
 Both take NHWC frames ``[B, H, W, C]``, as the JAX package's envs give
-them, and run the convolutions on an NCHW view of that memory (PyTorch
-calls it channels-last, which cuDNN takes as it is).  The flattened
-features are in NHWC order (h, w, c), as ``x.reshape((B, -1))`` flattens
-them in flax, so converted Dense kernels line up row for row.
+them, copy them once at the entry into NCHW-contiguous fp32 memory, and
+run the convolutions on contiguous NCHW tensors: cuDNN's fp32 kernels
+are NCHW, and on a channels-last view they transpose every operand to
+NCHW and back.  The flattened features are in NHWC order (h, w, c), as
+``x.reshape((B, -1))`` flattens them in flax, so converted Dense kernels
+line up row for row; that flatten copies the last activation once.
 
 ``NatureCNN`` on 84x84 frames: three ``'SAME'`` convs, 84 -> 21 (8x8
 stride 4, padded 2/2), 21 -> 11 (4x4 stride 2, padded 1/2), 11 -> 11 (3x3,
@@ -23,7 +25,10 @@ from ray_tpu_torch.models.flax_layers import SameConv2d, dense
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 3, 1, 2)
+    """NHWC frames (any dtype) -> NCHW-contiguous fp32, cast and copied in
+    one pass."""
+    return x.permute(0, 3, 1, 2).to(torch.float32,
+                                    memory_format=torch.contiguous_format)
 
 
 def _flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -47,11 +52,10 @@ class NatureCNN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: [B, H, W, C] uint8 or float -> [B, out_dim]."""
-        if x.dtype == torch.uint8:
-            x = x.to(torch.float32) / 255.0
-        else:
-            x = x.to(torch.float32)
+        scale = x.dtype == torch.uint8
         x = _nchw(x)
+        if scale:
+            x = x / 255.0
         x = F.relu(self.conv_0(x))
         x = F.relu(self.conv_1(x))
         x = F.relu(self.conv_2(x))
@@ -71,5 +75,5 @@ class MinAtarCNN(nn.Module):
         self.dense_0 = dense(h * w * features, out_dim, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.conv_0(_nchw(x.to(torch.float32))))
+        x = F.relu(self.conv_0(_nchw(x)))
         return F.relu(self.dense_0(_flatten_nhwc(x)))

@@ -8,9 +8,10 @@ trajectory never leaves the device, and an iteration reads the host once,
 for its metrics.  The JAX package jits the whole step into one program;
 the port runs it eagerly, one launch per operation.
 
-Not ported yet (ROADMAP, Queue 1 item 4): actor mode, the recurrent and
-attention policies (``use_lstm``, ``use_attention``), ``evaluate`` and
-checkpoints; more than one device (Queue 1 item 5).
+The recurrent and attention policies (``use_lstm``, ``use_attention``)
+are built by ``ppo_rnn.py`` and ``ppo_attn.py``; IMPALA/APPO reuse the
+rollout and ``AnakinState`` below.  Not ported yet: actor mode (ROADMAP,
+Queue 1 item 5), checkpoints (item 1b), more than one device (item 6).
 """
 from __future__ import annotations
 
@@ -20,14 +21,14 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm
+from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, make_env
 from ray_tpu_torch.rllib.algorithms.algorithm_config import AlgorithmConfig
 from ray_tpu_torch.rllib.core.rl_module import (
     DiscreteActorCritic,
     RLModuleSpec,
 )
 from ray_tpu_torch.rllib.env.torch_envs import (
-    make_torch_env,
+    count_episodes,
     vector_reset,
     vector_step,
 )
@@ -107,7 +108,7 @@ class AnakinState:
     """What the JAX ``AnakinState`` carries, held in place: the module
     holds ``params``, the optimizer ``opt_state``, and ``generator`` (on
     the device) stands for ``rng``."""
-    module: DiscreteActorCritic
+    module: torch.nn.Module
     optimizer: torch.optim.Optimizer
     env_states: Dict[str, torch.Tensor]
     obs: torch.Tensor
@@ -115,6 +116,80 @@ class AnakinState:
     ep_return: torch.Tensor        # per-env running return
     done_return_sum: torch.Tensor  # cumulative, 0-d
     done_count: torch.Tensor       # cumulative, 0-d
+
+
+def init_anakin(config: AlgorithmConfig, device: torch.device, env,
+                module: torch.nn.Module, grad_clip: Optional[float],
+                state_cls=AnakinState, **extra):
+    """The state every Anakin algorithm starts from: ``module`` on
+    ``device``, its update plan (``clip_by_global_norm(grad_clip)`` when
+    set, then ``adam(config.lr)``), ``config.num_envs`` envs reset from a
+    generator on ``device`` seeded with ``config.seed``, and zero episode
+    counters.  ``extra`` fills the fields a ``state_cls`` adds.  Returns
+    ``(state, update_fn)``."""
+    n = config.num_envs
+    mesh_util.setup_data_mesh(config, n)
+    module = module.to(device)
+    update_fn, optimizer = mesh_util.build_update_plan(
+        config, config.lr, grad_clip, module.parameters())
+    generator = torch.Generator(device=device).manual_seed(config.seed)
+    env_states, obs = vector_reset(env, generator, n, device)
+    zero = torch.zeros((), device=device)
+    state = state_cls(module, optimizer, env_states, obs, generator,
+                      torch.zeros(n, device=device), zero, zero.clone(),
+                      **extra)
+    return state, update_fn
+
+
+def trajectory_buffers(T: int, obs: torch.Tensor):
+    """The ``[T, N]`` trajectory of a rollout (obs, actions, action_logp,
+    values, rewards, dones), written in place each iteration."""
+    n, device = obs.shape[0], obs.device
+    return {
+        "obs": torch.empty((T,) + tuple(obs.shape), dtype=obs.dtype,
+                           device=device),
+        "actions": torch.empty((T, n), dtype=torch.int64, device=device),
+        "action_logp": torch.empty((T, n), device=device),
+        "values": torch.empty((T, n), device=device),
+        "rewards": torch.empty((T, n), device=device),
+        "dones": torch.empty((T, n), dtype=torch.bool, device=device),
+    }
+
+
+@torch.no_grad()
+def anakin_rollout(env, state: AnakinState, traj: Dict[str, torch.Tensor]
+                   ) -> AnakinState:
+    """``len(traj["actions"])`` steps of the policy in the envs, each
+    step's obs, action, log-probability, value, reward and done written
+    into ``traj``; returns the state after them, its episode counters
+    advanced."""
+    module, gen = state.module, state.generator
+    env_states, obs, ep_ret = state.env_states, state.obs, state.ep_return
+    dsum, dcnt = state.done_return_sum, state.done_count
+    for t in range(traj["actions"].shape[0]):
+        action, logp, value = module.forward_exploration(obs, gen)
+        env_states, next_obs, reward, done, _ = vector_step(
+            env, env_states, action, gen)
+        ep_ret, dsum, dcnt = count_episodes(ep_ret, dsum, dcnt, reward,
+                                            done)
+        for key, x in (("obs", obs), ("actions", action),
+                       ("action_logp", logp), ("values", value),
+                       ("rewards", reward), ("dones", done)):
+            traj[key][t] = x
+        obs = next_obs
+    return dataclasses.replace(state, env_states=env_states, obs=obs,
+                               ep_return=ep_ret, done_return_sum=dsum,
+                               done_count=dcnt)
+
+
+def sgd_metrics(state: AnakinState, losses: torch.Tensor, auxes: Metrics
+                ) -> Metrics:
+    """An iteration's metrics from ``run_ppo_sgd``'s, on the device."""
+    return {"total_loss": losses.mean(),
+            **{k: auxes[k].mean() for k in ("policy_loss", "vf_loss",
+                                            "entropy")},
+            "episode_return_sum": state.done_return_sum,
+            "episode_count": state.done_count}
 
 
 def make_anakin_ppo(config: AlgorithmConfig, device: torch.device):
@@ -128,37 +203,20 @@ def make_anakin_ppo(config: AlgorithmConfig, device: torch.device):
     when given, is called after the step has enqueued its "rollout", its
     "gae" (last value, GAE, normalisation) and its "sgd", and with
     "start" before them: a caller can record a CUDA event at each."""
-    env = make_torch_env(config.env) if isinstance(config.env, str) \
-        else config.env
-    obs_shape = getattr(env, "obs_shape", None)
+    env = make_env(config)
     spec = RLModuleSpec.for_env(env, tuple(config.hiddens))
+    state, update_fn = init_anakin(
+        config, device, env, spec.build(torch.Generator().manual_seed(
+            config.seed)), config.grad_clip)
+    module = state.module
+    params = list(module.parameters())
+    obs_shape = spec.obs_shape or (spec.obs_dim,)
 
     N, T = config.num_envs, config.unroll_length
     batch_total = N * T
     mb_size = min(config.sgd_minibatch_size, batch_total)
     num_mb = batch_total // mb_size
-    mesh_util.setup_data_mesh(config, N)
-
-    module = spec.build(torch.Generator().manual_seed(config.seed)).to(device)
-    params = list(module.parameters())
-    update_fn, optimizer = mesh_util.build_update_plan(
-        config, config.lr, config.grad_clip, params)
-    generator = torch.Generator(device=device).manual_seed(config.seed)
-    env_states, obs = vector_reset(env, generator, N, device)
-    zero = torch.zeros((), device=device)
-    state = AnakinState(module, optimizer, env_states, obs, generator,
-                        torch.zeros(N, device=device), zero, zero.clone())
-
-    # The trajectory, written in place each iteration.
-    traj = {
-        "obs": torch.empty((T,) + tuple(obs.shape), dtype=obs.dtype,
-                           device=device),
-        "actions": torch.empty((T, N), dtype=torch.int64, device=device),
-        "action_logp": torch.empty((T, N), device=device),
-        "values": torch.empty((T, N), device=device),
-        "rewards": torch.empty((T, N), device=device),
-        "dones": torch.empty((T, N), dtype=torch.bool, device=device),
-    }
+    traj = trajectory_buffers(T, state.obs)
     loss_fn = functools.partial(
         ppo_loss, module, clip_param=config.clip_param,
         vf_clip_param=config.vf_clip_param,
@@ -170,35 +228,16 @@ def make_anakin_ppo(config: AlgorithmConfig, device: torch.device):
                    ) -> Tuple[AnakinState, Metrics]:
         mark = on_phase or (lambda name: None)
         mark("start")
-        env_states, obs = state.env_states, state.obs
-        ep_ret = state.ep_return
-        dsum = torch.zeros((), device=device)
-        dcnt = torch.zeros((), device=device)
+        state = anakin_rollout(env, state, traj)
+        mark("rollout")
         with torch.no_grad():
-            for t in range(T):
-                action, logp, value = module.forward_exploration(
-                    obs, state.generator)
-                env_states, next_obs, reward, done, _ = vector_step(
-                    env, env_states, action, state.generator)
-                ep_ret = ep_ret + reward
-                dsum = dsum + torch.where(done, ep_ret, 0.0).sum()
-                dcnt = dcnt + done.sum()
-                ep_ret = torch.where(done, 0.0, ep_ret)
-                for key, x in (("obs", obs), ("actions", action),
-                               ("action_logp", logp), ("values", value),
-                               ("rewards", reward), ("dones", done)):
-                    traj[key][t] = x
-                obs = next_obs
-            mark("rollout")
-            _, last_value = module(obs)
+            _, last_value = module(state.obs)
             adv, vtarg = gae_torch(traj["rewards"], traj["values"],
                                    traj["dones"], last_value,
                                    config.gamma, config.lambda_)
             adv = mesh_util.normalize_global(adv)
         flat = {
-            "obs": (traj["obs"].view(batch_total, *obs_shape)
-                    if obs_shape is not None
-                    else traj["obs"].view(batch_total, -1)),
+            "obs": traj["obs"].view(batch_total, *obs_shape),
             "actions": traj["actions"].view(batch_total),
             "action_logp": traj["action_logp"].view(batch_total),
             "advantages": adv.view(batch_total),
@@ -212,47 +251,47 @@ def make_anakin_ppo(config: AlgorithmConfig, device: torch.device):
             lambda n: torch.randperm(n, generator=state.generator,
                                      device=device))
         mark("sgd")
-        state = dataclasses.replace(
-            state, env_states=env_states, obs=obs, ep_return=ep_ret,
-            done_return_sum=state.done_return_sum + dsum,
-            done_count=state.done_count + dcnt)
-        metrics = {
-            "total_loss": losses.mean(),
-            "policy_loss": auxes["policy_loss"].mean(),
-            "vf_loss": auxes["vf_loss"].mean(),
-            "entropy": auxes["entropy"].mean(),
-            "episode_return_sum": state.done_return_sum,
-            "episode_count": state.done_count,
-        }
-        return state, metrics
+        return state, sgd_metrics(state, losses, auxes)
 
     return state, train_step, batch_total
 
 
 class PPO(Algorithm):
+    """Feedforward, recurrent (``use_lstm``) or attention-memory
+    (``use_attention``) PPO."""
+
     _default_config_cls = PPOConfig
 
-    # Called by each train step with "start", "rollout", "gae" and "sgd"
-    # (see make_anakin_ppo); None outside measurements.
-    on_phase: Optional[Callable[[str], None]] = None
-
     def _setup_anakin(self):
-        if self.config.use_lstm or self.config.use_attention:
-            raise NotImplementedError(
-                "use_lstm/use_attention PPO is not ported yet: the port "
-                "runs the feedforward Anakin path (ROADMAP, Queue 1 item 4:"
-                " ppo_rnn and ppo_attn)")
-        self._anakin_state, self._train_step, self._steps_per_iter = \
-            make_anakin_ppo(self.config, self.device)
+        c = self.config
+        if c.use_lstm and c.use_attention:
+            raise ValueError("use_lstm and use_attention are exclusive")
+        if c.use_lstm:
+            from ray_tpu_torch.rllib.algorithms.ppo_rnn import \
+                make_anakin_ppo_rnn as build
+        elif c.use_attention:
+            from ray_tpu_torch.rllib.algorithms.ppo_attn import \
+                make_anakin_ppo_attn as build
+        else:
+            build = make_anakin_ppo
+        self._anakin_state, self._train_step, self._steps_per_iter = build(
+            c, self.device)
         self.module = self._anakin_state.module
 
-    def _training_step_anakin(self) -> Dict[str, Any]:
-        self._anakin_state, metrics = self._train_step(self._anakin_state,
-                                                       self.on_phase)
-        # ONE device-to-host read for every metric: the iteration's only
-        # sync with the device.
-        names = list(metrics)
-        values = torch.stack([metrics[k].float() for k in names]).tolist()
-        metrics = self._episode_counter_metrics(dict(zip(names, values)))
-        metrics["num_env_steps_sampled_this_iter"] = self._steps_per_iter
-        return metrics
+    def _make_eval_rollout(self, env):
+        """The memory policies thread their carry or window through the
+        greedy rollout."""
+        c = self.config
+        if c.use_lstm:
+            from ray_tpu_torch.rllib.algorithms.ppo_rnn import \
+                make_rnn_eval_rollout
+
+            return make_rnn_eval_rollout(env, self.module,
+                                         c.lstm_cell_size)
+        if c.use_attention:
+            from ray_tpu_torch.rllib.algorithms.ppo_attn import \
+                make_attn_eval_rollout
+
+            return make_attn_eval_rollout(env, self.module,
+                                          c.attention_window)
+        return super()._make_eval_rollout(env)

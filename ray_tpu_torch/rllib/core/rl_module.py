@@ -20,6 +20,26 @@ from ray_tpu_torch.models.mlp import MLP
 from ray_tpu_torch.models.nature_cnn import MinAtarCNN, NatureCNN
 
 
+def sample_categorical(logits: torch.Tensor, generator: torch.Generator
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(action, its log-probability) drawn from ``logits`` ``[..., A]``.
+    The action is a Gumbel-max draw, as ``jax.random.categorical`` makes
+    it: -log E of E ~ Exp(1) is a standard Gumbel."""
+    logp = torch.log_softmax(logits, -1)
+    noise = torch.empty_like(logp).exponential_(generator=generator)
+    action = (logp - noise.log()).argmax(-1)
+    return action, logp.gather(-1, action[..., None])[..., 0]
+
+
+def logp_and_entropy(logits: torch.Tensor, actions: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(log-probability of ``actions``, entropy) under ``logits``."""
+    logp_all = torch.log_softmax(logits, -1)
+    action_logp = logp_all.gather(
+        -1, actions[..., None].to(torch.int64))[..., 0]
+    return action_logp, -(logp_all.exp() * logp_all).sum(-1)
+
+
 @dataclasses.dataclass(frozen=True)
 class RLModuleSpec:
     obs_dim: Optional[int] = None
@@ -90,21 +110,13 @@ class DiscreteActorCritic(nn.Module):
 
     def forward_exploration(self, obs: torch.Tensor,
                             generator: torch.Generator):
-        """(action, its log-probability, value).  The action is a
-        Gumbel-max draw, as ``jax.random.categorical`` makes it: -log E
-        of E ~ Exp(1) is a standard Gumbel."""
+        """(action, its log-probability, value); see
+        ``sample_categorical``."""
         logits, value = self(obs)
-        logp = torch.log_softmax(logits, -1)
-        noise = torch.empty_like(logp).exponential_(generator=generator)
-        action = (logp - noise.log()).argmax(-1)
-        action_logp = logp.gather(-1, action[..., None])[..., 0]
-        return action, action_logp, value
+        return (*sample_categorical(logits, generator), value)
 
     def forward_train(self, obs: torch.Tensor, actions: torch.Tensor):
         """(log-probability of ``actions``, value, entropy)."""
         logits, value = self(obs)
-        logp_all = torch.log_softmax(logits, -1)
-        action_logp = logp_all.gather(
-            -1, actions[..., None].to(torch.int64))[..., 0]
-        entropy = -(logp_all.exp() * logp_all).sum(-1)
+        action_logp, entropy = logp_and_entropy(logits, actions)
         return action_logp, value, entropy

@@ -8,15 +8,18 @@ device and every step is tensor code with no per-env Python.  Contract:
 
     reset(num_envs, generator, device) -> (state, obs)
     reset_state(num_envs, generator, device) -> state
-    step_core(state, action) -> (state, reward, done)
+    draws(num_envs, generator, device) -> tuple of tensors (often empty)
+    step_core(state, action, *draws) -> (state, reward, done)
     step(state, action, generator) -> (state, obs, reward, done, info)
 
-``step_core`` is the dynamics alone; ``step`` auto-resets the envs that
-are done with ``torch.where`` between the stepped state and a fresh reset
-of the whole batch (as ``vmap`` of the JAX step does), then renders.
-Reset draws come from an explicit ``torch.Generator`` on the state's
-device; the port does not reproduce JAX's PRNG bits, so parity with the
-JAX envs means the same transition from the same state and action.
+``step_core`` is the dynamics alone, given the random draws of the step
+(SpaceInvaders' enemy fire; no other env draws); ``step`` makes those
+draws, auto-resets the envs that are done with ``torch.where`` between
+the stepped state and a fresh reset of the whole batch (as ``vmap`` of
+the JAX step does), then renders.  Draws come from an explicit
+``torch.Generator`` on the state's device; the port does not reproduce
+JAX's PRNG bits, so parity with the JAX envs means the same transition
+from the same state, action and draws.
 """
 from __future__ import annotations
 
@@ -40,17 +43,23 @@ def _where(done: torch.Tensor, a: State, b: State) -> State:
 class TorchEnv:
     """What every env shares: ``reset`` renders ``reset_state``; ``step``
     is ``step_core`` with auto-reset.  Subclasses define ``reset_state``,
-    ``step_core`` and ``_obs``."""
+    ``step_core`` and ``_obs``, and ``draws`` if a step is random."""
 
     def reset(self, num_envs: int, generator: torch.Generator,
               device) -> Tuple[State, torch.Tensor]:
         state = self.reset_state(num_envs, generator, device)
         return state, self._obs(state)
 
+    def draws(self, num_envs: int, generator: torch.Generator,
+              device) -> Tuple[torch.Tensor, ...]:
+        return ()
+
     def step(self, state: State, action: torch.Tensor,
              generator: torch.Generator):
-        stepped, reward, done = self.step_core(state, action)
-        fresh = self.reset_state(done.shape[0], generator, done.device)
+        n, device = action.shape[0], action.device
+        stepped, reward, done = self.step_core(
+            state, action, *self.draws(n, generator, device))
+        fresh = self.reset_state(n, generator, device)
         state = _where(done, fresh, stepped)
         return state, self._obs(state), reward, done, {}
 
@@ -106,6 +115,287 @@ class CartPole(TorchEnv):
                 | (t >= self.max_steps))
         reward = torch.ones_like(x)
         return {"core": core, "t": t}, reward, done
+
+
+class StatelessCartPole(CartPole):
+    """CartPole with the velocities hidden: obs = ``[x, theta]``, the
+    recurrent-policy testbed."""
+
+    obs_dim = 2
+
+    def _obs(self, state: State) -> torch.Tensor:
+        return state["core"][:, 0::2]
+
+
+class Pendulum(TorchEnv):
+    """Pendulum-v1 with the torque discretised to 3 bins, -2, 0, +2
+    (action 0, 1, 2); 200 steps, reward ``-cost``.  State ``th``,
+    ``thdot`` ``[N]`` float32, ``t`` ``[N]`` int32."""
+
+    num_actions = 3
+    obs_dim = 3
+    max_speed = 8.0
+    max_torque = 2.0
+    dt = 0.05
+    g = 10.0
+    m = 1.0
+    l = 1.0  # noqa: E741 (the pendulum's length, as in the JAX env)
+    max_steps = 200
+
+    def reset_state(self, num_envs: int, generator: torch.Generator,
+                    device) -> State:
+        def uniform(lo, hi):
+            u = torch.rand(num_envs, generator=generator, device=device)
+            return u * (hi - lo) + lo
+
+        return {"th": uniform(-math.pi, math.pi),
+                "thdot": uniform(-1.0, 1.0),
+                "t": torch.zeros(num_envs, dtype=torch.int32, device=device)}
+
+    def _obs(self, state: State) -> torch.Tensor:
+        th = state["th"]
+        return torch.stack([torch.cos(th), torch.sin(th), state["thdot"]], -1)
+
+    def step_core(self, state: State, action: torch.Tensor):
+        u = (action.to(torch.float32) - 1.0) * self.max_torque
+        th, thdot = state["th"], state["thdot"]
+        # A floored modulo, as jnp's %: the result takes the divisor's sign.
+        norm_th = torch.remainder(th + math.pi, 2 * math.pi) - math.pi
+        cost = norm_th ** 2 + 0.1 * thdot ** 2 + 0.001 * u ** 2
+        thdot = thdot + (3 * self.g / (2 * self.l) * torch.sin(th)
+                         + 3.0 / (self.m * self.l ** 2) * u) * self.dt
+        thdot = thdot.clamp(-self.max_speed, self.max_speed)
+        th = th + thdot * self.dt
+        t = state["t"] + 1
+        return {"th": th, "thdot": thdot, "t": t}, -cost, t >= self.max_steps
+
+
+def _grid(device, h: int, w: int):
+    """Row and column numbers ``[1, h, 1]`` and ``[1, 1, w]`` (int32), for
+    one-hot masks of per-env positions."""
+    rows = torch.arange(h, dtype=torch.int32, device=device)
+    cols = torch.arange(w, dtype=torch.int32, device=device)
+    return rows[None, :, None], cols[None, None, :]
+
+
+def _at(rows, cols, r, c):
+    """``[N, H, W]`` one-hot of cell ``(r[n], c[n])``."""
+    return (rows == r[:, None, None]) & (cols == c[:, None, None])
+
+
+class Breakout(TorchEnv):
+    """MinAtar-scale Breakout on a 10x10 board: 3 rows of bricks (rows
+    1-3), the paddle on the bottom row, a ball moving diagonally.  Actions
+    0 noop, 1 left, 2 right; +1 a brick; a missed ball ends the episode; a
+    cleared wall respawns.  Observation ``[10, 10, 4]`` float32 planes
+    {paddle, ball, trail, bricks}.  Integer state ``[N]`` int32,
+    ``bricks`` ``[N, 3, 10]`` bool.  The brick under the ball is read with
+    a gather on the flat ``[N, 30]`` wall and cleared with a one-hot
+    mask."""
+
+    num_actions = 3
+    obs_shape = (10, 10, 4)
+    H = W = 10
+    max_steps = 1000
+
+    def reset_state(self, num_envs: int, generator: torch.Generator,
+                    device) -> State:
+        def randint(lo, hi):
+            return torch.randint(lo, hi, (num_envs,), generator=generator,
+                                 device=device, dtype=torch.int32)
+
+        def full(value):
+            return torch.full((num_envs,), value, dtype=torch.int32,
+                              device=device)
+
+        ball_x = randint(0, self.W)
+        return {
+            "paddle_x": full(self.W // 2), "ball_x": ball_x,
+            "ball_y": full(4), "dx": randint(0, 2) * 2 - 1, "dy": full(1),
+            "last_x": ball_x.clone(), "last_y": full(3),
+            "bricks": torch.ones((num_envs, 3, self.W), dtype=torch.bool,
+                                 device=device),
+            "t": full(0),
+        }
+
+    def _obs(self, s: State) -> torch.Tensor:
+        rows, cols = _grid(s["ball_x"].device, self.H, self.W)
+        paddle = _at(rows, cols, torch.full_like(s["paddle_x"], self.H - 1),
+                     s["paddle_x"])
+        ball = _at(rows, cols, s["ball_y"], s["ball_x"])
+        trail = _at(rows, cols, s["last_y"], s["last_x"])
+        # Rows 1..3 of the brick plane hold the wall.
+        wall = s["bricks"][:, (rows[0, :, 0] - 1).clamp(0, 2).long()] & (
+            (rows >= 1) & (rows <= 3))
+        return torch.stack([paddle, ball, trail, wall], -1).to(torch.float32)
+
+    def step_core(self, s: State, action: torch.Tensor):
+        i32 = torch.int32
+        paddle_x = (s["paddle_x"] - (action == 1).to(i32)
+                    + (action == 2).to(i32)).clamp(0, self.W - 1)
+        # Side-wall bounce.
+        dx = torch.where((s["ball_x"] + s["dx"] < 0)
+                         | (s["ball_x"] + s["dx"] > self.W - 1),
+                         -s["dx"], s["dx"])
+        new_x = s["ball_x"] + dx
+        # Ceiling bounce.
+        dy = torch.where(s["ball_y"] + s["dy"] < 0, -s["dy"], s["dy"])
+        new_y = s["ball_y"] + dy
+        # Brick hit: remove it, score, bounce back vertically.  (The column
+        # is in range on every state a reset or a step makes; the clamp
+        # keeps the gather in bounds on any other.)
+        row = (new_y - 1).clamp(0, 2)
+        n = new_y.shape[0]
+        flat = s["bricks"].reshape(n, -1)
+        index = (row * self.W + new_x.clamp(0, self.W - 1)).long()[:, None]
+        hit = (new_y >= 1) & (new_y <= 3) & flat.gather(1, index)[:, 0]
+        cells = torch.arange(flat.shape[1], device=flat.device)
+        flat = flat & ~(hit[:, None] & (cells[None, :] == index))
+        reward = hit.to(torch.float32)
+        dy = torch.where(hit, -dy, dy)
+        new_y = torch.where(hit, s["ball_y"], new_y)
+        # Paddle row: a catch bounces the ball up, a miss ends the episode.
+        at_bottom = new_y >= self.H - 1
+        caught = at_bottom & (new_x == paddle_x)
+        dy = torch.where(caught, -1, dy)
+        new_y = torch.where(caught, self.H - 2, new_y)
+        dead = at_bottom & ~caught
+        # A cleared wall respawns, per env.
+        flat = flat | ~flat.any(1, keepdim=True)
+        t = s["t"] + 1
+        done = dead | (t >= self.max_steps)
+        state = {"paddle_x": paddle_x, "ball_x": new_x, "ball_y": new_y,
+                 "dx": dx, "dy": dy, "last_x": s["ball_x"],
+                 "last_y": s["ball_y"], "bricks": flat.view(n, 3, self.W),
+                 "t": t}
+        return state, reward, done
+
+
+class SpaceInvaders(TorchEnv):
+    """MinAtar-scale Space Invaders on a 10x10 board.  A cannon on the
+    bottom row moves and fires (cooldown 4 steps); the alien block
+    (rows 1-4, columns 2-7) marches sideways every 4 steps and descends
+    one row, turning, when it would leave the board; each step an alive
+    alien, drawn uniformly, drops a bullet with probability 0.2.  +1 an
+    alien shot; an enemy bullet on the cannon or an alien on the bottom
+    row ends the episode; a cleared wave respawns.  Actions 0 noop,
+    1 left, 2 right, 3 fire.  Observation ``[10, 10, 4]`` float32 planes
+    {cannon, aliens, friendly bullets, enemy bullets}.  State ``aliens``,
+    ``fbul``, ``ebul`` ``[N, 10, 10]`` bool, the rest ``[N]`` int32.
+
+    The step's draws are ``fire_u`` ``[N]`` (fire when below 0.2, as
+    ``jax.random.bernoulli`` compares its uniform) and ``col_noise``
+    ``[N, 100]``: the bullet drops from the alive alien with the largest
+    noise, so any i.i.d. continuous noise draws it uniformly (JAX's
+    ``categorical`` adds Gumbel noise to logits of 0 and -1e9)."""
+
+    num_actions = 4
+    obs_shape = (10, 10, 4)
+    H = W = 10
+    max_steps = 1000
+    move_interval = 4
+    shot_cooldown = 4
+    enemy_fire_prob = 0.2
+
+    def _initial_aliens(self, num_envs: int, device) -> torch.Tensor:
+        aliens = torch.zeros((num_envs, self.H, self.W), dtype=torch.bool,
+                             device=device)
+        aliens[:, 1:5, 2:8] = True
+        return aliens
+
+    def reset_state(self, num_envs: int, generator: torch.Generator,
+                    device) -> State:
+        def full(value):
+            return torch.full((num_envs,), value, dtype=torch.int32,
+                              device=device)
+
+        empty = torch.zeros((num_envs, self.H, self.W), dtype=torch.bool,
+                            device=device)
+        return {"pos": full(self.W // 2),
+                "aliens": self._initial_aliens(num_envs, device),
+                "dir": full(1), "move_t": full(0), "shot_t": full(0),
+                "fbul": empty, "ebul": empty.clone(), "t": full(0)}
+
+    def draws(self, num_envs: int, generator: torch.Generator, device):
+        return (torch.rand(num_envs, generator=generator, device=device),
+                torch.rand((num_envs, self.H * self.W), generator=generator,
+                           device=device))
+
+    def _obs(self, s: State) -> torch.Tensor:
+        rows, cols = _grid(s["pos"].device, self.H, self.W)
+        cannon = _at(rows, cols, torch.full_like(s["pos"], self.H - 1),
+                     s["pos"])
+        return torch.stack([cannon, s["aliens"], s["fbul"], s["ebul"]],
+                           -1).to(torch.float32)
+
+    @staticmethod
+    def _shift_rows(m: torch.Tensor, up: bool) -> torch.Tensor:
+        zero = torch.zeros_like(m[:, :1])
+        return (torch.cat([m[:, 1:], zero], 1) if up
+                else torch.cat([zero, m[:, :-1]], 1))
+
+    @staticmethod
+    def _shift_cols(m: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+        zero = torch.zeros_like(m[:, :, :1])
+        left = torch.cat([m[:, :, 1:], zero], 2)
+        return torch.where(right[:, None, None],
+                           torch.cat([zero, m[:, :, :-1]], 2), left)
+
+    def step_core(self, s: State, action: torch.Tensor,
+                  fire_u: torch.Tensor, col_noise: torch.Tensor):
+        i32 = torch.int32
+        n = action.shape[0]
+        rows, cols = _grid(action.device, self.H, self.W)
+        pos = (s["pos"] - (action == 1).to(i32)
+               + (action == 2).to(i32)).clamp(0, self.W - 1)
+        # Bullets in flight move one cell before a new shot spawns, so a
+        # fresh bullet starts at row H-2.
+        fbul = self._shift_rows(s["fbul"], up=True)
+        ebul = self._shift_rows(s["ebul"], up=False)
+        can_fire = (action == 3) & (s["shot_t"] <= 0)
+        fbul = fbul | (can_fire[:, None, None]
+                       & _at(rows, cols, torch.full_like(pos, self.H - 2),
+                             pos))
+        shot_t = torch.where(can_fire, self.shot_cooldown,
+                             (s["shot_t"] - 1).clamp_min(0))
+        # The march: sideways every move_interval steps; at an edge, down
+        # one row and turn.
+        move_now = s["move_t"] + 1 >= self.move_interval
+        aliens = s["aliens"]
+        at_edge = torch.where(s["dir"] > 0, aliens[:, :, -1].any(1),
+                              aliens[:, :, 0].any(1))
+        descend = move_now & at_edge
+        new_dir = torch.where(descend, -s["dir"], s["dir"])
+        aliens = torch.where(
+            descend[:, None, None], self._shift_rows(aliens, up=False),
+            torch.where(move_now[:, None, None],
+                        self._shift_cols(aliens, s["dir"] > 0), aliens))
+        move_t = torch.where(move_now, 0, s["move_t"] + 1)
+        # An alive alien, drawn by the noise, drops a bullet.
+        flat = aliens.reshape(n, -1)
+        fire = (fire_u < self.enemy_fire_prob) & flat.any(1)
+        idx = torch.where(flat, col_noise, -math.inf).argmax(1)
+        cells = torch.arange(flat.shape[1], device=flat.device)
+        ebul = ebul | (fire[:, None] & (cells[None, :] == idx[:, None])
+                       ).view(n, self.H, self.W)
+        # Friendly bullets hitting aliens: both vanish, +1 each.
+        hits = fbul & aliens
+        reward = hits.flatten(1).sum(1).to(torch.float32)
+        aliens = aliens & ~hits
+        fbul = fbul & ~hits
+        # Death: an enemy bullet on the cannon, or aliens on the bottom row.
+        on_cannon = (ebul[:, self.H - 1]
+                     & (cols[0] == pos[:, None])).any(1)
+        dead = on_cannon | aliens[:, self.H - 1].any(1)
+        # A cleared wave respawns.
+        aliens = torch.where(aliens.flatten(1).any(1)[:, None, None], aliens,
+                             self._initial_aliens(n, aliens.device))
+        t = s["t"] + 1
+        done = dead | (t >= self.max_steps)
+        state = {"pos": pos, "aliens": aliens, "dir": new_dir,
+                 "move_t": move_t, "shot_t": shot_t, "fbul": fbul,
+                 "ebul": ebul, "t": t}
+        return state, reward, done
 
 
 class Breakout84(TorchEnv):
@@ -241,11 +531,22 @@ class Breakout84(TorchEnv):
 
 REGISTRY = {
     "CartPole-v1": CartPole,
+    "StatelessCartPole-v1": StatelessCartPole,
+    "Pendulum-v1": Pendulum,
+    "Breakout-MinAtar-v0": Breakout,
     "Breakout-Atari84-v0": Breakout84,
+    "SpaceInvaders-MinAtar-v0": SpaceInvaders,
 }
+# Envs of the JAX registry that come with a later slice: asking for one
+# raises, naming it.
+LATER = {"PendulumContinuous-v1": (
+    "its continuous action belongs to the SAC family, which is ported in "
+    "its own slice (ROADMAP, Queue 1 item 7)")}
 
 
 def make_torch_env(name: str):
+    if name in LATER:
+        raise NotImplementedError(f"{name} is not ported yet: {LATER[name]}")
     if name not in REGISTRY:
         raise ValueError(f"unknown torch env {name!r}; have {list(REGISTRY)}")
     return REGISTRY[name]()
@@ -260,3 +561,12 @@ def vector_step(env, states: State, actions: torch.Tensor,
                 generator: torch.Generator):
     """Batched step with auto-reset: (states, obs, reward, done, info)."""
     return env.step(states, actions, generator)
+
+
+def count_episodes(ep_ret, dsum, dcnt, reward, done):
+    """Adds one step's rewards to the running returns, and the returns of
+    the episodes that ended to the (sum, count) counters."""
+    ep_ret = ep_ret + reward
+    dsum = dsum + torch.where(done, ep_ret, 0.0).sum()
+    dcnt = dcnt + done.sum()
+    return torch.where(done, 0.0, ep_ret), dsum, dcnt

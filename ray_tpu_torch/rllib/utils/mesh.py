@@ -5,7 +5,7 @@ mesh, with gradients and moments ``pmean``-ed across it.  On one device
 (``num_devices`` None or 1) every ``pmean`` is the identity, which is all
 the port does so far: more devices, ``zero_sharding`` and
 ``quantized_collectives`` raise ``NotImplementedError`` (ROADMAP, Queue 1
-item 5, data parallelism).
+item 6, data parallelism).
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 import torch
 
 _LATER = ("is not ported yet: the port's Anakin step runs on one device "
-          "(ROADMAP, Queue 1 item 5, data parallelism)")
+          "(ROADMAP, Queue 1 item 6, data parallelism)")
 
 
 def normalize_global(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

@@ -47,7 +47,7 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu(path):
 
 def test_entry_points_without_device_raise_when_there_is_no_cuda():
     from ray_tpu_torch import resolve_device
-    from ray_tpu_torch.rllib import PPOConfig
+    from ray_tpu_torch.rllib import APPOConfig, IMPALAConfig, PPOConfig
     from ray_tpu_torch.serve import LLMEngine, LLMServer, NaiveLM, build_model
 
     if torch.cuda.is_available():
@@ -61,7 +61,14 @@ def test_entry_points_without_device_raise_when_there_is_no_cuda():
              lambda: LLMServer("gpt2", seed=0),
              lambda: PPOConfig().environment("CartPole-v1").anakin(
                  num_envs=4, unroll_length=4).build(),
-             lambda: PPOConfig().resources(device="cuda").build()]
+             lambda: PPOConfig().resources(device="cuda").build(),
+             lambda: IMPALAConfig().environment("CartPole-v1").anakin(
+                 num_envs=4, unroll_length=4).build(),
+             lambda: APPOConfig().environment("CartPole-v1").anakin(
+                 num_envs=4, unroll_length=4).build(),
+             lambda: PPOConfig().environment("StatelessCartPole-v1").anakin(
+                 num_envs=4, unroll_length=4).training(
+                     model={"use_lstm": True}).build()]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
             call()
@@ -90,3 +97,29 @@ def test_engine_refuses_a_model_on_another_device():
     model = build_model("gpt2", seed=0, device="cpu")
     with pytest.raises(ValueError, match="model is on"):
         LLMEngine(model, device="meta", start=False)
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda rl: rl.IMPALAConfig().rollouts(num_rollout_workers=2),
+     "Queue 1 item 5"),
+    (lambda rl: rl.APPOConfig().rollouts(num_rollout_workers=2),
+     "Queue 1 item 5"),
+    (lambda rl: rl.PPOConfig().environment("PendulumContinuous-v1"),
+     "SAC.*Queue 1 item 7"),
+], ids=["impala_actor_mode", "appo_actor_mode", "pendulum_continuous"])
+def test_later_slices_raise_naming_them(call, match):
+    from ray_tpu_torch import rllib
+
+    with pytest.raises(NotImplementedError, match=match):
+        call(rllib).resources(device="cpu").build()
+
+
+@pytest.mark.parametrize("method", ["save_checkpoint", "load_checkpoint"])
+def test_checkpoints_raise_naming_their_slice(method):
+    from ray_tpu_torch.rllib import IMPALAConfig
+
+    algo = IMPALAConfig().anakin(num_envs=4, unroll_length=4).resources(
+        device="cpu").build()
+    args = () if method == "save_checkpoint" else (None,)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1b"):
+        getattr(algo, method)(*args)

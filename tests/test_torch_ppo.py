@@ -254,8 +254,9 @@ def test_ppo_learns_cartpole():
     lambda c: c.resources(num_devices=2),
     lambda c: c.resources(zero_sharding="opt"),
     lambda c: c.resources(quantized_collectives="int8"),
-    lambda c: c.training(model={"use_lstm": True}),
-    lambda c: c.training(model={"use_attention": True}),
+    lambda c: c.training(model={"use_lstm": True}).resources(num_devices=2),
+    lambda c: c.training(model={"use_attention": True}).resources(
+        zero_sharding="opt"),
     lambda c: c.rollouts(num_rollout_workers=2),
 ], ids=["num_devices", "zero", "int8", "lstm", "attention", "actor_mode"])
 def test_paths_not_ported_yet_raise(knob):

@@ -173,3 +173,46 @@ def test_module_is_an_nn_module():
     assert spec.example_obs(3).shape == (3, 4)
     assert RLModuleSpec(obs_shape=(84, 84, 4), num_actions=3,
                         conv=True).example_obs(2).dtype == torch.uint8
+
+
+def _channels_last_trunk(trunk, x):
+    """The trunk as it ran before its frames were copied to NCHW: the
+    convolutions on an NCHW view of the NHWC memory (channels-last), the
+    same weights."""
+    scale = isinstance(trunk, NatureCNN) and x.dtype == torch.uint8
+    x = x.to(torch.float32)
+    if scale:
+        x = x / 255.0
+    x = x.permute(0, 3, 1, 2)
+    convs = [m for n, m in trunk.named_children() if n.startswith("conv_")]
+    for conv in convs:
+        x = torch.relu(conv(x))
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    return torch.relu(trunk.dense_0(x.permute(0, 2, 3, 1).reshape(
+        x.shape[0], -1)))
+
+
+@pytest.mark.parametrize("shape,cls", [((84, 84, 4), NatureCNN),
+                                       ((10, 10, 4), MinAtarCNN)],
+                         ids=["nature_cnn", "minatar_cnn"])
+def test_trunks_run_on_contiguous_nchw(shape, cls):
+    """The frames are copied once into NCHW-contiguous memory, so every
+    convolution's input and output are contiguous NCHW (cuDNN's fp32
+    layout, with no transposes of its own); the output equals the old
+    channels-last trunk's within 1e-6."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(_frames(rng, (4,) + shape, binary=shape[0] < 32))
+    if cls is MinAtarCNN:
+        x = x.to(torch.float32)  # the MinAtar envs' float planes
+    trunk = cls(shape, generator=torch.Generator().manual_seed(0))
+    seen = []
+    hooks = [m.register_forward_hook(lambda mod, args, out: seen.append(
+        (args[0].is_contiguous(), out.is_contiguous())))
+        for name, m in trunk.named_children() if name.startswith("conv_")]
+    with torch.no_grad():
+        got = trunk(x)
+        for hook in hooks:
+            hook.remove()
+        want = _channels_last_trunk(trunk, x)
+    assert seen and all(i and o for i, o in seen), seen
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)
