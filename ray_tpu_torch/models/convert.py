@@ -1,7 +1,8 @@
-"""Carry weights from the JAX package's flax param trees to the port.
+"""Carry weights from the JAX package's flax param trees to the port,
+and between the port's own models.
 
-Both functions take the tree as numpy arrays (they need no JAX) and
-return a ``state_dict``.
+The ``*_from_jax``/``*_from_flax`` functions take the tree as numpy
+arrays (they need no JAX) and return a ``state_dict``.
 
 ``gpt2_params_from_jax``, for ``ray_tpu_torch.models.GPT2``, with the
 names of ``ray_tpu/models/gpt2.py::_AXIS_BY_NAME``:
@@ -36,6 +37,11 @@ LayerNorms' ``scale`` -> ``weight``, the GRU gates' Dense kernels, and
 the attention's ``query``/``key``/``value`` kernels ``[d, heads,
 head_dim]`` (bias ``[heads, head_dim]``) and ``out`` kernel ``[heads,
 head_dim, d]``, flattened to ``[in, out]`` and transposed.
+
+``layerskip_draft`` builds the speculative-decoding draft of
+``bench.py::bench_serving_spec`` (``:768-774``) from a target GPT-2: one
+layer, with copies of the target's ``wte``, ``wpe``, ``h.0`` and
+``ln_f``.
 """
 from __future__ import annotations
 
@@ -199,3 +205,22 @@ def attention_actor_critic_from_flax(tree: Mapping[str, Any]
     out: Dict[str, torch.Tensor] = {}
     _rl_walk(tree, out, "", _attention_leaf)
     return out
+
+
+def layerskip_draft(target):
+    """The LayerSkip draft of a ``GPT2`` target: the target's config cut
+    to one layer, holding copies of its ``wte``, ``wpe``, first block and
+    ``ln_f``, on the target's device.  The tensors are copied, not shared,
+    as in the JAX bench (``draft_params`` is a tree of its own): a later
+    ``swap_weights`` of the target leaves the draft as it was."""
+    import dataclasses
+
+    from ray_tpu_torch.models.gpt2 import GPT2
+
+    cfg = dataclasses.replace(target.config, num_layers=1)
+    keep = {name: t for name, t in target.state_dict().items()
+            if name.split(".")[0] in ("wte", "wpe", "ln_f")
+            or name.startswith("h.0.")}
+    draft = GPT2(cfg).to(next(target.parameters()).device)
+    draft.load_state_dict(keep)  # copies into the draft's own tensors
+    return draft.eval()

@@ -62,6 +62,21 @@ class GPT2Config:
         kw.setdefault("hidden_size", 64)
         return cls(**kw)
 
+    @classmethod
+    def draft_of(cls, target: "GPT2Config", num_layers: int = 1,
+                 num_heads: Optional[int] = None,
+                 hidden_size: Optional[int] = None, **kw):
+        """A speculative-decoding draft config for ``target``: the same
+        vocab, context length and dtype (what the engine requires), the
+        rest shrunk; by default one layer at half width."""
+        heads = num_heads or max(1, target.num_heads // 2)
+        hidden = hidden_size or max(heads * 8, target.hidden_size // 2)
+        hidden -= hidden % heads  # head_dim must divide
+        return cls(vocab_size=target.vocab_size,
+                   max_position_embeddings=target.max_position_embeddings,
+                   num_layers=num_layers, num_heads=heads,
+                   hidden_size=hidden, dtype=target.dtype, **kw)
+
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads

@@ -9,26 +9,62 @@
 
 2. **Token-boundary admission.**  The engine loop runs one decode step
    for all in-flight requests, then admits pending requests into free
-   slots between steps (one full prefill each), so a new request joins
-   the running batch at the next token boundary.
+   slots between steps (one prefill each), so a new request joins the
+   running batch at the next token boundary.
 
 3. **Paged KV cache.**  K/V live in fixed-size pages of device tensors
    ``[L, num_pages, page_size, Hkv, D]`` handed out by ``PagePool``.  A
    sequence owns ``ceil(len/page)`` pages found through a per-slot page
    table; each step gathers the pages into the attention view and writes
-   the new token's K/V back.  When the pool runs dry the engine preempts
+   the new tokens' K/V back.  When the pool runs dry the engine preempts
    the youngest request (recompute preemption: its pages free, and it is
    prefilled again later from prompt + generated-so-far; sampling is
    position-seeded, so the resumed output is identical).
 
 4. **Seeded sampling** (``serve/sampling.py``): ``temperature=0`` (the
    default) is greedy argmax, the token-identity contract with
-   ``NaiveLM``.
+   ``NaiveLM``.  Each step returns its logits and the engine samples them
+   on the host's generator stream, capturing each emitted token's
+   behavior logprob (raw log-softmax).
 
-The loop is a worker thread owned by the engine.  Not ported yet (see
-ROADMAP.md): speculative decoding, the prefix cache and tail prefill,
-disaggregated prefill, hot weight swap and rollouts, the object-plane
-batch paths, metrics export and tracing spans.
+5. **Speculative decoding.**  With a ``draft_model``, each iteration
+   runs ``spec_tokens - 1`` draft steps that propose tokens, one catch-up
+   draft step, then one target verify step over the ``[max_slots,
+   spec_tokens]`` window that samples the target's token at every
+   position (accept the longest matching prefix, plus the target's own
+   token).  Sampling is position-seeded, so the accepted stream is the
+   plain stream; the draft only sets the tokens a step yields.  The draft
+   has its own page arrays under the target's page table, and with
+   ``draft_window`` attends to the last pages only.
+
+6. **Prefix cache** (``serve/prefix_cache.py``).  After prefill every
+   full page's K/V is snapshotted to a host LRU under the hash of the
+   token prefix that produced it; admission adopts the longest cached
+   run of pages and prefills only the tail, which attends to the adopted
+   pages.
+
+7. **Disaggregated prefill** (``serve/prefill.py``).  With ``prefill=``
+   (an in-process ``PrefillWorker``), an admission whose uncached tail
+   is at least ``prefill_min_tokens`` long is handed to the worker's
+   thread; the engine adopts the returned pages at a later token
+   boundary, and decode never waits for a long prompt.
+
+8. **Token-boundary hot weight swap** (``swap_weights``).  A new
+   ``state_dict`` is copied into the model between decode steps (one
+   host-to-device copy per version); in-flight slots are recycled
+   through recompute preemption, so their KV is rebuilt under the new
+   weights; every emitted token is stamped with the weight version it was
+   sampled under, and the prefix-cache namespace folds the version in,
+   so pre-swap pages become unaddressable.  ``rollout`` and
+   ``generate_rollouts`` return tokens with their logprobs and stamps.
+
+The loop is a worker thread owned by the engine (the JAX package runs it
+as a ``flow.Stage`` of its runtime).  Not ported yet (see ROADMAP.md), each
+raising where a caller reaches it: the cluster prefix directory and
+prefill through a deployment, an actor or the object plane (Queue 1 item
+1a), ``generate_batch``/``generate_many`` and ``LLMServer`` as a Serve
+deployment (item 1a), ``build_model("llama")`` (item 8).  Metrics export
+and tracing spans (item 9) have no caller here.
 """
 from __future__ import annotations
 
@@ -38,14 +74,23 @@ import math
 import queue
 import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.exceptions import EngineClosedError, KVPoolExhaustedError
-from ray_tpu_torch.serve.sampling import GREEDY, SamplingParams, sample_tokens
+from ray_tpu_torch.serve import prefix_cache as pc
+from ray_tpu_torch.serve.sampling import (
+    GREEDY,
+    SamplingParams,
+    sample_tokens,
+    sample_tokens_with_logprobs,
+)
+
+_RUNTIME = ("needs the task/actor runtime, not ported yet (ROADMAP Queue 1 "
+            "item 1a)")
 
 
 class PagePool:
@@ -114,6 +159,12 @@ class _Request:
     # raised, or the None chunk was delivered); only consumed requests
     # are evicted from the registry.
     consumed: bool = False
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+    # Parallel to ``out``: each emitted token's behavior logprob and the
+    # weight version it was sampled under.
+    out_logps: List[float] = dataclasses.field(default_factory=list)
+    out_versions: List[int] = dataclasses.field(default_factory=list)
 
     def context(self) -> List[int]:
         """Prompt plus generated-so-far: what a (re)admission prefills."""
@@ -128,14 +179,76 @@ class _Request:
         self.done.set()
 
 
+# ---------------------------------------------------------------------------
+# Step helpers shared by the engine and the prefill worker
+# ---------------------------------------------------------------------------
+def _scatter_kv(k_pages, v_pages, page_idx, off, newk, newv):
+    """Write [L, N, Hkv, D] K/V rows at (page_idx[N], off[N]) of every
+    layer's pages, in place."""
+    layers = torch.arange(k_pages.shape[0], device=k_pages.device)[:, None]
+    k_pages.index_put_((layers, page_idx[None], off[None]),
+                       newk.to(k_pages.dtype))
+    v_pages.index_put_((layers, page_idx[None], off[None]),
+                       newv.to(v_pages.dtype))
+
+
+def _wpe_rows(positions: torch.Tensor, cfg) -> torch.Tensor:
+    """Positions as rows of ``wpe``: clamped to the table, as JAX clamps
+    an out-of-range gather.  Only lanes whose outputs are discarded reach
+    past it (prompt padding, a speculative window at the end of the
+    context)."""
+    return positions.clamp_max(cfg.max_position_embeddings - 1)
+
+
+def _full_forward(model, tokens: Sequence[int], bucket: int, device):
+    """Full-context forward (empty cache) of ``tokens`` padded to
+    ``bucket``: (logits [bucket, V], K and V [L, bucket, Hkv, D])."""
+    c = model.config
+    toks = np.zeros((bucket,), np.int64)
+    toks[:len(tokens)] = tokens
+    ids = torch.from_numpy(toks).to(device)[None]
+    hkv = getattr(c, "num_kv_heads", c.num_heads)
+    empty = [(torch.zeros((1, 0, hkv, c.head_dim), dtype=c.dtype,
+                          device=device),) * 2
+             for _ in range(c.num_layers)]
+    logits, new_kvs = model(
+        ids, torch.arange(bucket, device=device)[None], empty,
+        torch.zeros((1,), dtype=torch.long, device=device))
+    newk = torch.stack([nk[0][0] for nk in new_kvs])  # [L, bucket, Hkv, D]
+    newv = torch.stack([nk[1][0] for nk in new_kvs])
+    return logits[0], newk, newv
+
+
+def _sample(logits, positions, temps, top_ps, seeds):
+    """Sample rows of ``logits`` [N, V] with host arrays of [N] params;
+    returns (tokens int64, logprobs) as numpy (one read-back)."""
+    positions, temps, top_ps, seeds = (
+        torch.from_numpy(np.ascontiguousarray(a)).to(logits.device)
+        for a in (positions, temps, top_ps, seeds))
+    tok, logp = sample_tokens_with_logprobs(logits, positions, temps, top_ps,
+                                            seeds)
+    return tok.cpu().numpy(), logp.cpu().numpy()
+
+
+def _sample_one(logits_row, position: int, s: SamplingParams):
+    """The token at ``position`` from one logits row [V] under the
+    request's sampling, and its logprob."""
+    tok, logp = _sample(logits_row[None], np.array([position]),
+                        np.array([s.temperature], np.float32),
+                        np.array([s.top_p], np.float32), np.array([s.seed]))
+    return int(tok[0]), float(logp[0])
+
+
 class LLMEngine:
     """Replica-resident continuous-batching decode engine.
 
     ``submit()`` is thread-safe and returns immediately; the engine's
     worker thread owns the device state and serializes prefill and
     decode.  ``result()`` blocks for the full output, ``stream()`` yields
-    token chunks as they are produced.  ``model`` must already be on
-    ``device`` (CUDA unless ``device="cpu"``)."""
+    token chunks as they are produced.  ``model`` (and ``draft_model``)
+    must already be on ``device`` (CUDA unless ``device="cpu"``); the
+    module carries its weights, so there is no ``params`` or
+    ``draft_params`` argument."""
 
     # Registry size bound: evict consumed finished requests past LIMIT,
     # down to FLOOR (an undrained streaming request is never dropped).
@@ -145,12 +258,19 @@ class LLMEngine:
     def __init__(self, model, *, max_slots: int = 8, page_size: int = 16,
                  num_pages: Optional[int] = None,
                  max_ctx: Optional[int] = None, chunk_tokens: int = 8,
-                 start: bool = True, device=None):
+                 start: bool = True, draft_model=None,
+                 spec_tokens: Optional[int] = None,
+                 draft_window: Optional[int] = None, prefix_cache=None,
+                 cache_namespace: str = "", prefix_directory=None,
+                 prefill=None, prefill_min_tokens: int = 32, device=None):
         self.device = resolve_device(device)
-        param_device = next(model.parameters()).device
-        if param_device != self.device:
-            raise ValueError(f"the model is on {param_device} but the engine "
-                             f"runs on {self.device}")
+        for name, m in (("model", model), ("draft model", draft_model)):
+            if m is None:
+                continue
+            param_device = next(m.parameters()).device
+            if param_device != self.device:
+                raise ValueError(f"the {name} is on {param_device} but the "
+                                 f"engine runs on {self.device}")
         self._model = model
         c = model.config
         self.num_layers = c.num_layers
@@ -175,12 +295,67 @@ class LLMEngine:
 
         # The JAX engine donates these buffers to its compiled steps;
         # here the steps write them in place (index_put_).
-        shape = (self.num_layers, num_pages, self.page_size,
-                 self.kv_heads, self.head_dim)
-        self._k_pages = torch.zeros(shape, dtype=self.dtype,
-                                    device=self.device)
-        self._v_pages = torch.zeros(shape, dtype=self.dtype,
-                                    device=self.device)
+        self._k_pages, self._v_pages = self._page_arrays(c, num_pages)
+
+        # ---- speculative decoding (draft + verify) ----
+        self.spec_tokens = int(spec_tokens if spec_tokens is not None
+                               else 4 if draft_model is not None else 0)
+        self._draft_model = draft_model
+        self._spec = draft_model is not None and self.spec_tokens >= 2
+        if draft_model is not None and not self._spec:
+            raise ValueError(
+                f"speculative decoding needs spec_tokens >= 2, got "
+                f"{self.spec_tokens}")
+        if self._spec:
+            dc = draft_model.config
+            if dc.vocab_size != c.vocab_size or \
+                    dc.max_position_embeddings < self.max_ctx:
+                raise ValueError(
+                    "draft model must share the target's vocab and cover "
+                    "its max_ctx "
+                    f"(draft vocab {dc.vocab_size} vs {c.vocab_size}, "
+                    f"positions {dc.max_position_embeddings} vs "
+                    f"{self.max_ctx})")
+            # The draft's pages sit under the target's page table.
+            self._dk_pages, self._dv_pages = self._page_arrays(dc, num_pages)
+        # Sliding-window draft attention: the draft gathers only the last
+        # ceil(draft_window / page_size) pages (at least 2).
+        self._draft_window_pages = None
+        if draft_window is not None:
+            if not self._spec:
+                raise ValueError("draft_window needs a draft model")
+            self._draft_window_pages = max(
+                2, math.ceil(int(draft_window) / self.page_size))
+
+        # ---- prefix cache (the local tier) ----
+        if prefix_directory is not None:
+            raise NotImplementedError(
+                f"prefix_directory (the cluster prefix cache) {_RUNTIME}")
+        if prefix_cache is True:
+            prefix_cache = pc.PrefixCacheLocal(256 * 1024 * 1024)
+        self._prefix = prefix_cache or None
+        if not cache_namespace:
+            cache_namespace = (f"{type(model).__name__}|{c!r}|"
+                               f"ps{self.page_size}")
+        # Callers pass the unversioned base; every swap_weights re-derives
+        # the effective namespace, making pre-swap pages unaddressable.
+        self._base_namespace = cache_namespace
+        self._weight_version = 0
+        self._namespace = pc.versioned_namespace(cache_namespace, 0)
+
+        # ---- disaggregated prefill ----
+        self._prefill_min = int(prefill_min_tokens)
+        self._prefill_client = None
+        if prefill is not None:
+            from ray_tpu_torch.serve.prefill import as_prefill_client
+
+            self._prefill_client = as_prefill_client(prefill)
+        # (req, job, start) awaiting the worker: nothing is reserved while
+        # a prefill is in flight; finished payloads park in _ready until a
+        # slot frees.
+        self._awaiting: List[tuple] = []
+        self._ready: collections.deque = collections.deque()
+        self._prefill_max_inflight = 2 * self.max_slots
 
         # Host-side slot state (the loop thread is the only writer).
         self._table = np.zeros((self.max_slots, self.pages_per_slot),
@@ -194,6 +369,13 @@ class LLMEngine:
         self._slot_pages: List[List[int]] = [[] for _ in range(self.max_slots)]
         self._slot_req: Dict[int, _Request] = {}
 
+        self._decode = self._make_decode_step(model)
+        if self._spec:
+            self._draft_decode = self._make_decode_step(
+                draft_model, window_pages=self._draft_window_pages)
+            self._verify = self._make_verify_step(model)
+        self._prefill_buckets = set()
+
         self._pending: collections.deque = collections.deque()
         self._requests: Dict[int, _Request] = {}
         self._next_id = 0
@@ -205,11 +387,29 @@ class LLMEngine:
         self._occupancy_sum = 0.0
         self._decode_s = 0.0
         self._prefill_s = 0.0
+        # Host wall time of the parts of a speculative step, each ended by
+        # a device sync the step needs anyway (its sampling reads back).
+        self._spec_split = collections.Counter()
+        # Hot weight swap: queued (state_dict, version, event), applied by
+        # the loop thread at the next token boundary.
+        self._pending_swaps: collections.deque = collections.deque()
+        self._swap_latency_sum = 0.0
+        # Wall time of device work (prefill, decode, swap) and the
+        # completion stamps of recent decode steps.
+        self._work_s = 0.0
+        self._step_stamps: collections.deque = collections.deque(
+            maxlen=1024)
         self._thread: Optional[threading.Thread] = None
         if start:
             self._thread = threading.Thread(target=self._loop, daemon=True,
                                             name="llm_engine")
             self._thread.start()
+
+    def _page_arrays(self, cfg, num_pages: int):
+        shape = (cfg.num_layers, num_pages, self.page_size,
+                 getattr(cfg, "num_kv_heads", cfg.num_heads), cfg.head_dim)
+        return (torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+                torch.zeros(shape, dtype=cfg.dtype, device=self.device))
 
     # ------------------------------------------------------------------
     # public API (any thread)
@@ -254,6 +454,94 @@ class LLMEngine:
             raise req.error
         return list(req.out)
 
+    def swap_weights(self, params: Mapping[str, Any], version: int,
+                     timeout: Optional[float] = 60.0) -> int:
+        """Install new weights (a ``state_dict`` of the serving model) at
+        the next token boundary: one host-to-device copy per version, no
+        in-flight request dropped.  Active slots are recycled through
+        recompute preemption, so their KV is rebuilt under the new
+        weights; their emitted tokens, logprobs and stamps stay, and every
+        later token is sampled under, and stamped with, ``version``.  The
+        prefix-cache namespace re-derives with the version, so pre-swap
+        pages are never adopted after the swap.
+
+        ``version`` must exceed the current one.  With ``timeout`` the
+        call blocks until the loop applies the swap (``TimeoutError``
+        otherwise); ``timeout=None`` returns at once.  A tree whose names,
+        shapes or dtypes differ from the model's stops the engine
+        (``EngineClosedError`` here, ``ValueError`` on its requests).
+        Returns the installed version."""
+        if not isinstance(params, Mapping):
+            raise NotImplementedError(
+                f"swap_weights takes a state_dict; a "
+                f"{type(params).__name__} (an object-plane weight "
+                f"broadcast) {_RUNTIME}")
+        version = int(version)
+        applied = threading.Event()
+        with self._cond:
+            if self._closed:
+                raise EngineClosedError("engine is closed")
+            pending_max = max(
+                [v for _, v, _ in self._pending_swaps],
+                default=self._weight_version)
+            if version <= pending_max:
+                raise ValueError(
+                    f"swap version {version} must exceed the current "
+                    f"version {pending_max}")
+            self._pending_swaps.append((params, version, applied))
+            self._cond.notify_all()
+        if timeout is not None:
+            if not applied.wait(timeout):
+                raise TimeoutError(
+                    f"weight swap to version {version} not applied within "
+                    f"{timeout}s")
+            if self._weight_version < version:
+                # close()/_fail_all wakes waiters without applying.
+                raise EngineClosedError(
+                    f"engine closed before swap to version {version} "
+                    f"applied")
+        return version
+
+    @property
+    def weight_version(self) -> int:
+        return self._weight_version
+
+    def rollout(self, rid: int, timeout: Optional[float] = None
+                ) -> Dict[str, Any]:
+        """Blocking full result with the per-token behavior logprobs and
+        weight-version stamps: the RLHF rollout record."""
+        req = self._requests[rid]
+        if not req.done.wait(timeout):
+            raise TimeoutError(f"request {rid} not done within {timeout}s")
+        req.consumed = True
+        if req.error is not None:
+            raise req.error
+        return {
+            "prompt": list(req.prompt),
+            "tokens": list(req.out),
+            "logprobs": list(req.out_logps),
+            "versions": list(req.out_versions),
+        }
+
+    def generate_rollouts(self, prompts: Sequence[Sequence[int]],
+                          max_new_tokens: int = 16,
+                          eos_id: Optional[int] = None,
+                          sampling: Optional[List[SamplingParams]] = None,
+                          timeout: float = 300.0) -> List[Dict[str, Any]]:
+        """Submit a prompt batch and collect version-stamped rollouts (all
+        prompts in flight together, subject to ``max_slots``)."""
+        if sampling is None:
+            sampling = [None] * len(prompts)
+        rids = [self.submit(p, max_new_tokens, eos_id, sampling=s)
+                for p, s in zip(prompts, sampling)]
+        return [self.rollout(r, timeout=timeout) for r in rids]
+
+    def recent_step_stamps(self) -> List[float]:
+        """``time.monotonic()`` completion stamps of recent decode
+        steps."""
+        with self._lock:
+            return list(self._step_stamps)
+
     def stream(self, rid: int, timeout: float = 120.0):
         """Yield token chunks (lists) as they are produced; returns when
         the request retires.  Raises the request's error, if any."""
@@ -267,17 +555,33 @@ class LLMEngine:
         if req.error is not None:
             raise req.error
 
-    def stats(self) -> Dict[str, object]:
-        """Counters of the engine.  ``decode_seconds`` and
-        ``prefill_seconds`` are host wall time around the steps, each of
-        which ends by reading its sampled tokens back (a device sync)."""
+    def request_stats(self, rid: int) -> Dict[str, Any]:
+        """Per-request accounting (speculative acceptance)."""
+        req = self._requests[rid]
+        return {
+            "tokens": len(req.out),
+            "spec_proposed": req.spec_proposed,
+            "spec_accepted": req.spec_accepted,
+            "spec_acceptance_rate": (req.spec_accepted / req.spec_proposed
+                                     if req.spec_proposed else 0.0),
+        }
+
+    def stats(self) -> Dict[str, Any]:
+        """Counters of the engine, under the JAX package's names.
+        ``decode_seconds`` is host wall time around the decode steps (each
+        ends by reading its sampled tokens back, a device sync);
+        ``prefill_seconds`` around admissions (prefix lookup and adoption,
+        prefill, the snapshot of new pages and the draft's prefill).
+        ``spec_split_seconds`` splits the speculative steps into draft
+        forwards, draft sampling, verify forward and verify sampling."""
         with self._lock:
             n_active = int(self._active.sum())
             s = dict(self._stats)
             n_pending = len(self._pending)
+            n_awaiting = len(self._awaiting) + len(self._ready)
         pool = self.pool.stats()
         steps = s.get("steps", 0)
-        return {
+        out = {
             "active": n_active,
             "pending": n_pending,
             "admitted": s.get("admitted", 0),
@@ -292,17 +596,51 @@ class LLMEngine:
             "pages_free": pool["free"],
             "page_pool": pool,
             "prefills": s.get("prefills", 0),
-            "prefill_tokens": s.get("prefill_tokens", 0),
+            "prefill_buckets": len(self._prefill_buckets),
             "decode_seconds": self._decode_s,
             "prefill_seconds": self._prefill_s,
+            # speculative decoding
+            "spec_steps": s.get("spec_steps", 0),
+            "spec_proposed": s.get("spec_proposed", 0),
+            "spec_accepted": s.get("spec_accepted", 0),
+            "spec_acceptance_rate": (
+                s.get("spec_accepted", 0) / s.get("spec_proposed", 1)
+                if s.get("spec_proposed", 0) else 0.0),
+            "spec_split_seconds": dict(self._spec_split),
+            # prefix cache (no directory here: remote hits stay 0)
+            "prefix_hit_pages": s.get("prefix_hit_pages", 0),
+            "prefix_remote_hit_pages": s.get("prefix_remote_hit_pages", 0),
+            "prefix_published_pages": s.get("prefix_published_pages", 0),
+            "prefill_tokens": s.get("prefill_tokens", 0),
+            "prefill_tokens_saved": s.get("prefill_tokens_saved", 0),
+            # disaggregated prefill
+            "prefill_offloaded": s.get("prefill_offloaded", 0),
+            "prefill_inflight": n_awaiting,
+            "prefill_prefix_fallback": s.get("prefill_prefix_fallback", 0),
+            "wire_bytes": s.get("wire_bytes", 0),
+            "wire_fp32_bytes": s.get("wire_fp32_bytes", 0),
+            # hot weight swap
+            "weight_version": self._weight_version,
+            "swaps": s.get("swaps", 0),
+            "swap_reprefills": s.get("swap_reprefills", 0),
+            "swap_latency_s_avg": (self._swap_latency_sum / s["swaps"]
+                                   if s.get("swaps", 0) else 0.0),
+            "work_seconds": self._work_s,
         }
+        if self._prefix is not None:
+            out["prefix_cache"] = self._prefix.stats()
+        return out
 
     def close(self, timeout: float = 10.0):
         with self._cond:
             if self._closed:
                 return
             self._closed = True
+            swaps = list(self._pending_swaps)
+            self._pending_swaps.clear()
             self._cond.notify_all()
+        for _, _, applied in swaps:
+            applied.set()  # wake blocked swappers; the version stays put
         if self._thread is not None:
             self._thread.join(timeout)
         err = EngineClosedError("engine closed with requests in flight")
@@ -311,31 +649,277 @@ class LLMEngine:
                 req.finish(error=err)
 
     # ------------------------------------------------------------------
+    # the steps (plain functions over tensors, run eagerly)
+    # ------------------------------------------------------------------
+    def _dev(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _gather_for(self, cfg):
+        """Pages + [slots, pp] table -> per-slot contiguous
+        [L, slots, max_ctx, Hkv, D] attention view (rows past each slot's
+        length are garbage, masked by cached_attention)."""
+        L = cfg.num_layers
+        hkv = getattr(cfg, "num_kv_heads", cfg.num_heads)
+        d, mc = cfg.head_dim, self.max_ctx
+
+        def gather(pages, table):
+            return pages[:, table].reshape(L, table.shape[0], mc, hkv, d)
+
+        return gather
+
+    def _write_mask(self, active, positions):
+        """Lanes whose K/V lands in a slot's pages: active and inside the
+        context.  A speculative window may reach past max_ctx at the end
+        of a request; those rows go to the scratch page, where the JAX
+        engine's clamped page column would wrap them onto the slot's last
+        page."""
+        return active & (positions < self.max_ctx)
+
+    def _make_decode_step(self, model, window_pages: Optional[int] = None):
+        """One token for every slot, for the target or the draft (each
+        over its own page arrays): ``step(k_pages, v_pages, table,
+        lengths, tokens, active)`` with host arrays writes each lane's K/V
+        at its write head and returns the logits [slots, V].
+
+        ``window_pages`` (the draft) attends to the last n pages only:
+        positions are baked into the cached K/V at write time, so the
+        windowed view with window-relative lengths is exact windowed
+        attention."""
+        cfg = model.config
+        L, ps, pp = cfg.num_layers, self.page_size, self.pages_per_slot
+        hkv = getattr(cfg, "num_kv_heads", cfg.num_heads)
+        if window_pages is None or window_pages >= pp:
+            gather = self._gather_for(cfg)
+
+            def gather_view(pages, table, lengths):
+                return gather(pages, table), lengths
+        else:
+            wp = int(window_pages)
+
+            def gather_view(pages, table, lengths):
+                # Pages [(len-1)//ps - wp + 1 .. (len-1)//ps], clamped:
+                # the newest wp pages; valid rows are lengths - start*ps.
+                last_page = (lengths - 1).clamp_min(0) // ps
+                start = (last_page - (wp - 1)).clamp_min(0)
+                cols = start[:, None] + torch.arange(wp, device=self.device)
+                idx = table.gather(1, cols.clamp_max(pp - 1))
+                view = pages[:, idx].reshape(L, table.shape[0], wp * ps, hkv,
+                                             cfg.head_dim)
+                return view, lengths - start * ps
+
+        def step(k_pages, v_pages, table, lengths, tokens, active):
+            table, lengths, tokens, active = (
+                self._dev(a) for a in (table, lengths, tokens, active))
+            k_cache, view_len = gather_view(k_pages, table, lengths)
+            v_cache, _ = gather_view(v_pages, table, lengths)
+            kv = [(k_cache[i], v_cache[i]) for i in range(L)]
+            logits, new_kvs = model(tokens[:, None],
+                                    _wpe_rows(lengths, cfg)[:, None], kv,
+                                    view_len)
+            newk = torch.stack([nk[0][:, 0] for nk in new_kvs])
+            newv = torch.stack([nk[1][:, 0] for nk in new_kvs])
+            slots = torch.arange(table.shape[0], device=self.device)
+            page_idx = torch.where(
+                self._write_mask(active, lengths),
+                table[slots, (lengths // ps).clamp_max(pp - 1)], 0)
+            _scatter_kv(k_pages, v_pages, page_idx, lengths % ps, newk, newv)
+            return logits[:, -1]
+
+        return step
+
+    def _make_verify_step(self, model):
+        """Target verification of a [slots, k] speculative window: one
+        forward over the window, K/V written for every position, and the
+        logits [slots, k, V] of every position returned for sampling."""
+        cfg = model.config
+        L, ps, pp = cfg.num_layers, self.page_size, self.pages_per_slot
+        k_win = self.spec_tokens
+        gather = self._gather_for(cfg)
+
+        def verify(k_pages, v_pages, table, lengths, window, active):
+            table, lengths, window, active = (
+                self._dev(a) for a in (table, lengths, window, active))
+            k_cache = gather(k_pages, table)
+            v_cache = gather(v_pages, table)
+            kv = [(k_cache[i], v_cache[i]) for i in range(L)]
+            positions = lengths[:, None] + torch.arange(k_win,
+                                                        device=self.device)
+            logits, new_kvs = model(window, _wpe_rows(positions, cfg), kv,
+                                    lengths)
+            n = table.shape[0]
+            newk = torch.stack([nk[0] for nk in new_kvs])  # [L,n,k,Hkv,D]
+            newv = torch.stack([nk[1] for nk in new_kvs])
+            page_idx = torch.where(
+                self._write_mask(active[:, None], positions),
+                table.gather(1, (positions // ps).clamp_max(pp - 1)), 0)
+            _scatter_kv(k_pages, v_pages, page_idx.reshape(-1),
+                        (positions % ps).reshape(-1),
+                        newk.flatten(1, 2), newv.flatten(1, 2))
+            return logits
+
+        return verify
+
+    def _full_prefill(self, model, k_pages, v_pages, row, ctx):
+        """Full-context prefill (empty cache) of ``ctx`` at its
+        power-of-two bucket into the pages of table ``row``; returns the
+        logits row at p - 1.  The target's prefill and the draft's (the
+        JAX engine's ``_prefill_fn`` and ``_draft_prefill_fn``)."""
+        p, ps = len(ctx), self.page_size
+        bucket = self._bucket_for(p)
+        self._prefill_buckets.add(bucket)
+        logits, newk, newv = _full_forward(model, ctx, bucket, self.device)
+        t = torch.arange(bucket, device=self.device)
+        page_idx = torch.where(t < p, self._dev(row)[t // ps], 0)
+        _scatter_kv(k_pages, v_pages, page_idx, t % ps, newk, newv)
+        return logits[p - 1]
+
+    def _tail_prefill(self, row, ctx, start: int):
+        """Cache-aware tail prefill: the first ``start`` tokens' K/V is
+        already in the pages of ``row`` (adopted), so only the tail runs
+        through the model, attending to the gathered prefix plus itself.
+        Returns the logits row at p - 1."""
+        cfg, ps, pp = self._model.config, self.page_size, self.pages_per_slot
+        p = len(ctx)
+        tail_len = p - start
+        bucket = self._bucket_for(tail_len)
+        self._prefill_buckets.add(bucket)
+        toks = np.zeros((bucket,), np.int64)
+        toks[:tail_len] = ctx[start:]
+        row = self._dev(row)
+        gather = self._gather_for(cfg)
+        k_cache = gather(self._k_pages, row[None])  # [L, 1, max_ctx, Hkv, D]
+        v_cache = gather(self._v_pages, row[None])
+        kv = [(k_cache[i], v_cache[i]) for i in range(self.num_layers)]
+        t = torch.arange(bucket, device=self.device)
+        abs_pos = start + t
+        logits, new_kvs = self._model(
+            self._dev(toks)[None], _wpe_rows(abs_pos, cfg)[None], kv,
+            torch.tensor([start], device=self.device))
+        newk = torch.stack([nk[0][0] for nk in new_kvs])
+        newv = torch.stack([nk[1][0] for nk in new_kvs])
+        page_idx = torch.where(
+            t < tail_len, row[(abs_pos // ps).clamp_max(pp - 1)], 0)
+        _scatter_kv(self._k_pages, self._v_pages, page_idx, abs_pos % ps,
+                    newk, newv)
+        return logits[0, tail_len - 1]
+
+    def _bucket_for(self, p: int) -> int:
+        b = 8
+        while b < p:
+            b <<= 1
+        return min(b, self.max_ctx)
+
+    # ------------------------------------------------------------------
     # engine loop (the worker thread owns the device state)
     # ------------------------------------------------------------------
     def _loop(self):
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         with torch.inference_mode():
-            while True:
-                with self._cond:
-                    while (not self._closed and not self._pending
-                           and not self._active.any()):
-                        self._cond.wait(0.2)
-                    if self._closed:
-                        return
-                try:
-                    self._admit()
-                    self._grow()
-                    if self._active.any():
-                        self._decode_once()
-                except BaseException as e:  # noqa: BLE001 — fail per request
-                    self._fail_all(e)
+            while self._wait_for_work():
+                if not self._iteration():
                     return
+
+    def _wait_for_work(self) -> bool:
+        """Block while there is nothing to do; with only remote prefills
+        in flight, poll them every millisecond.  False once closed."""
+        with self._cond:
+            while not self._closed and not (
+                    self._pending or self._ready or self._pending_swaps
+                    or self._active.any()):
+                if self._awaiting:
+                    self._cond.wait(0.001)
+                    break
+                self._cond.wait(0.2)
+            return not self._closed
+
+    def _iteration(self) -> bool:
+        t_work0 = time.perf_counter()
+        try:
+            self._apply_swaps()  # token boundary: between decode steps
+            self._poll_prefill()
+            self._admit()
+            self._grow()
+            if self._active.any():
+                if self._spec:
+                    self._decode_once_spec()
+                else:
+                    self._decode_once()
+                with self._lock:
+                    self._step_stamps.append(time.monotonic())
+        except BaseException as e:  # noqa: BLE001 — fail per request
+            self._fail_all(e)
+            return False
+        self._work_s += time.perf_counter() - t_work0
+        return True
+
+    # ------------------------------------------------------------------
+    # hot weight swap (loop thread only)
+    # ------------------------------------------------------------------
+    def _apply_swaps(self):
+        """Install every queued weight version, newest last.  Runs
+        between decode steps: the definition of a token boundary."""
+        while True:
+            with self._lock:
+                if not self._pending_swaps:
+                    return
+                params, version, applied = self._pending_swaps.popleft()
+            t0 = time.monotonic()
+            try:
+                self._check_swap_tree(params)
+            except BaseException:
+                # The loop is about to die (_fail_all); wake the blocked
+                # swapper now, so it raises EngineClosedError at once.
+                applied.set()
+                raise
+            # One host-to-device copy per version, into the model's own
+            # tensors (a draft built by layerskip_draft holds copies and
+            # keeps its weights).
+            self._model.load_state_dict(params)
+            self._weight_version = int(version)
+            self._namespace = pc.versioned_namespace(
+                self._base_namespace, self._weight_version)
+            # In-flight requests: recycled through recompute preemption so
+            # their KV is rebuilt under the new weights at re-admission.
+            for slot in range(self.max_slots):
+                if self._active[slot]:
+                    self._preempt(slot)
+                    self._stats["swap_reprefills"] += 1
+            self._stats["swaps"] += 1
+            self._swap_latency_sum += time.monotonic() - t0
+            applied.set()
+
+    def _check_swap_tree(self, params: Mapping[str, Any]):
+        """A mismatched state_dict would garble the model: fail loudly."""
+        cur = self._model.state_dict()
+        if set(params) != set(cur):
+            raise ValueError(
+                "swap_weights state_dict does not match the serving "
+                f"model's (missing {sorted(set(cur) - set(params))}, "
+                f"unexpected {sorted(set(params) - set(cur))})")
+        for name, old in cur.items():
+            new = params[name]
+            if tuple(new.shape) != tuple(old.shape) or \
+                    new.dtype != old.dtype:
+                raise ValueError(
+                    f"swap_weights leaf {name} mismatch: "
+                    f"{tuple(new.shape)}/{new.dtype} vs serving "
+                    f"{tuple(old.shape)}/{old.dtype}: a swap must not "
+                    f"change shapes or dtypes")
 
     def _fail_all(self, e: BaseException):
         with self._lock:
             self._closed = True  # a dead loop must reject new submits
+            self._awaiting = []
+            self._ready.clear()
+            swaps = list(self._pending_swaps)
+            self._pending_swaps.clear()
+        for _, _, applied in swaps:
+            applied.set()
         for req in list(self._requests.values()):
             if not req.done.is_set():
                 req.finish(error=e)
@@ -346,15 +930,15 @@ class LLMEngine:
         self._active[:] = False
 
     # ------------------------------------------------------------------
-    # admission
+    # admission: prefix-cache lookup, local prefill or offload
     # ------------------------------------------------------------------
     def _admit(self):
-        """Token-boundary admission: fill free slots from the pending
-        queue, one full prefill each.  Requires prompt pages + 1 free so
-        the first decode token cannot force a preemption at once.  The
-        JAX engine also looks up the prefix cache and may offload the
-        prefill to prefill replicas here; those branches are still to be
-        ported."""
+        """Token-boundary admission: activate finished offloaded prefills
+        first, then fill free slots from the pending queue, one prefill
+        each.  Requires prompt pages + 1 free so the first decode token
+        cannot force a preemption at once.  Offload decisions come before
+        any slot or page is reserved."""
+        self._activate_ready()
         while True:
             with self._lock:
                 if not self._pending:
@@ -370,79 +954,134 @@ class LLMEngine:
                         f"request {req.id} needs {need + 1} pages but the "
                         f"pool holds {self.pool.capacity}"))
                     continue
-                free = [s for s in range(self.max_slots)
-                        if not self._active[s]]
-                if not free:
-                    return
-                pages = self.pool.alloc(need + 1)
-                if pages is None:
-                    return  # pool too tight right now; retry next boundary
-                self.pool.free(pages[need:])  # only reserve the +1 headroom
-                pages = pages[:need]
+                inflight = len(self._awaiting) + len(self._ready)
+            if (self._prefill_client is not None
+                    and inflight < self._prefill_max_inflight):
+                # The uncached tail from the local cache's view.
+                start = self._local_prefix_run(ctx)
+                if p - start >= self._prefill_min:
+                    job = self._prefill_client.submit(ctx, start,
+                                                      req.sampling)
+                    with self._lock:
+                        self._pending.popleft()
+                        self._awaiting.append((req, job, start))
+                    self._stats["prefill_offloaded"] += 1
+                    continue
+            slot, mid_batch = self._reserve(need)
+            if slot is None:
+                return
+            with self._lock:
                 self._pending.popleft()
-                slot = free[0]
-                mid_batch = bool(self._active.any())
-            self._slot_pages[slot] = pages
-            row = np.zeros((self.pages_per_slot,), np.int64)
-            row[:need] = pages
-            self._table[slot] = row
-            nxt = self._prefill(slot, req, ctx)
-            self._finish_admission(slot, req, p, nxt, mid_batch)
+            t0 = time.perf_counter()
+            # Longest cached prefix: adopt its pages, prefill the tail.
+            cached = self._lookup_prefix(ctx)
+            start = len(cached) * self.page_size
+            if cached:
+                self._adopt_pages(slot, 0, cached)
+                self._stats["prefill_tokens_saved"] += start
+            nxt, lp = self._local_prefill(slot, req, ctx, start)
+            self._finish_admission(slot, req, p, nxt, lp, mid_batch, t0)
 
-    def _bucket_for(self, p: int) -> int:
-        b = 8
-        while b < p:
-            b <<= 1
-        return min(b, self.max_ctx)
+    def _reserve(self, need: int):
+        """A free slot with ``need`` pages (and one more free in the
+        pool), or (None, False)."""
+        with self._lock:
+            free = [s for s in range(self.max_slots) if not self._active[s]]
+            if not free:
+                return None, False
+            pages = self.pool.alloc(need + 1)
+            if pages is None:
+                return None, False  # pool too tight; retry next boundary
+            self.pool.free(pages[need:])  # only reserve the +1 headroom
+            slot = free[0]
+            mid_batch = bool(self._active.any())
+        self._slot_pages[slot] = pages[:need]
+        self._table[slot] = 0
+        self._table[slot, :need] = pages[:need]
+        return slot, mid_batch
 
-    def _prefill(self, slot: int, req: _Request, ctx: List[int]) -> int:
-        """Full-context prefill (empty cache) of ``ctx``, padded to its
-        power-of-two bucket, into the slot's pages; returns the sampled
-        token at absolute position p = len(ctx)."""
-        t0 = time.perf_counter()
-        dev, ps = self.device, self.page_size
+    def _local_prefix_run(self, ctx: List[int]) -> int:
+        """Length (tokens) of the leading full-page run present in the
+        local cache (contains() only, no fetch)."""
+        if self._prefix is None:
+            return 0
+        keys = pc.prefix_page_keys(
+            self._namespace, ctx, self.page_size,
+            max_pages=(len(ctx) - 1) // self.page_size)
+        n = 0
+        for key in keys:
+            if not self._prefix.contains(key):
+                break
+            n += 1
+        return n * self.page_size
+
+    def _activate_ready(self):
+        """Admit finished offloaded prefills into free slots: reserve the
+        slot and pages now, re-adopt the cached prefix, adopt the tail
+        pages from the wire, activate.  If the prefix was evicted during
+        the round trip, fall back to a local prefill (the tail payload
+        alone cannot cover the missing positions)."""
+        while self._ready:
+            req, result, start = self._ready[0]
+            ctx = req.context()
+            p = len(ctx)
+            slot, mid_batch = self._reserve(math.ceil(p / self.page_size))
+            if slot is None:
+                return
+            with self._lock:
+                self._ready.popleft()
+            t0 = time.perf_counter()
+            k_np, v_np, next_tok, meta = result
+            first_page = start // self.page_size
+            if start:
+                cached = self._lookup_prefix(ctx, max_pages=first_page)
+                if len(cached) < first_page:
+                    self._stats["prefill_prefix_fallback"] += 1
+                    hit = len(cached) * self.page_size
+                    if cached:
+                        self._adopt_pages(slot, 0, cached)
+                        self._stats["prefill_tokens_saved"] += hit
+                    nxt, lp = self._local_prefill(slot, req, ctx, hit)
+                    self._finish_admission(slot, req, p, nxt, lp, mid_batch,
+                                           t0)
+                    continue
+                self._adopt_pages(slot, 0, cached)
+                self._stats["prefill_tokens_saved"] += start
+            self._adopt_pages(
+                slot, first_page,
+                [(k_np[:, j], v_np[:, j]) for j in range(k_np.shape[1])])
+            self._stats["wire_bytes"] += int(meta.get("wire_bytes", 0))
+            self._stats["wire_fp32_bytes"] += int(meta.get("fp32_bytes", 0))
+            if meta.get("exact", True):
+                self._publish_prefix(ctx, slot)
+            self._finish_admission(slot, req, p, int(next_tok),
+                                   float(meta.get("next_logp", float("nan"))),
+                                   mid_batch, t0)
+
+    def _local_prefill(self, slot: int, req: _Request, ctx: List[int],
+                       start: int):
+        """Run the full or the tail prefill into the slot's pages, then
+        snapshot its new full pages; returns (next token, logprob)."""
         p = len(ctx)
-        bucket = self._bucket_for(p)
-        toks = np.zeros((bucket,), np.int64)
-        toks[:p] = ctx
-        ids = torch.from_numpy(toks).to(dev)[None]
-        t = torch.arange(bucket, device=dev)
-        empty = [(torch.zeros((1, 0, self.kv_heads, self.head_dim),
-                              dtype=self.dtype, device=dev),) * 2
-                 for _ in range(self.num_layers)]
-        logits, new_kvs = self._model(
-            ids, t[None], empty, torch.zeros((1,), dtype=torch.long,
-                                             device=dev))
-        s = req.sampling
-        nxt = sample_tokens(
-            logits[0, p - 1][None], torch.tensor([p], device=dev),
-            torch.tensor([s.temperature], device=dev),
-            torch.tensor([s.top_p], device=dev),
-            torch.tensor([s.seed], device=dev))
-        row = torch.from_numpy(self._table[slot]).to(dev)
-        page_idx = torch.where(t < p, row[t // ps], 0)
-        newk = torch.stack([nk[0][0] for nk in new_kvs])  # [L,bkt,Hkv,D]
-        newv = torch.stack([nk[1][0] for nk in new_kvs])
-        self._write_kv(page_idx[None], (t % ps)[None], newk, newv)
-        nxt = int(nxt[0])  # reads back: the prefill is done on the device
+        row = self._table[slot]
+        if start == 0:
+            logits = self._full_prefill(self._model, self._k_pages,
+                                        self._v_pages, row, ctx)
+        else:
+            logits = self._tail_prefill(row, ctx, start)
+        tok_lp = _sample_one(logits, p, req.sampling)
         self._stats["prefills"] += 1
-        self._stats["prefill_tokens"] += p
-        self._prefill_s += time.perf_counter() - t0
-        return nxt
-
-    def _write_kv(self, page_idx, off, newk, newv):
-        """Write [L, N, Hkv, D] K/V rows at (page_idx[N], off[N]) of every
-        layer's pages, in place."""
-        layers = torch.arange(self.num_layers, device=self.device)[:, None]
-        self._k_pages.index_put_((layers, page_idx, off),
-                                 newk.to(self.dtype))
-        self._v_pages.index_put_((layers, page_idx, off),
-                                 newv.to(self.dtype))
+        self._stats["prefill_tokens"] += p - start
+        self._publish_prefix(ctx, slot)
+        return tok_lp
 
     def _finish_admission(self, slot: int, req: _Request, p: int,
-                          next_tok: int, mid_batch: bool):
-        """The slot's KV covers positions [0, p) and ``next_tok`` is the
-        sampled token at p."""
+                          next_tok: int, next_logp: float, mid_batch: bool,
+                          t0: float):
+        """Shared end of every admission path: the slot's K/V covers
+        positions [0, p) and ``next_tok`` is the sampled token at p."""
+        if self._spec:
+            self._warm_draft(slot, req.context())
         s = req.sampling
         self._stats["admitted"] += 1
         if mid_batch:
@@ -457,20 +1096,110 @@ class LLMEngine:
         with self._lock:
             self._active[slot] = True
         self._slot_req[slot] = req
-        self._append_token(slot, req, next_tok)
+        self._prefill_s += time.perf_counter() - t0
+        self._append_token(slot, req, next_tok, next_logp)
+
+    def _warm_draft(self, slot: int, ctx: List[int]):
+        """Spec mode: full draft prefill of the context into the draft's
+        pages (the same table row as the target)."""
+        self._full_prefill(self._draft_model, self._dk_pages, self._dv_pages,
+                           self._table[slot], ctx)
+
+    # ------------------------------------------------------------------
+    # prefix cache: lookup / adopt / publish (the local tier)
+    # ------------------------------------------------------------------
+    def _lookup_prefix(self, ctx: List[int],
+                       max_pages: Optional[int] = None) -> List[tuple]:
+        """(k, v) host pages of the longest cached run of leading full
+        pages, capped at (len-1)//page_size so at least one position is
+        computed afresh (the next token needs a logits row)."""
+        if self._prefix is None:
+            return []
+        cap = (len(ctx) - 1) // self.page_size
+        if max_pages is not None:
+            cap = min(cap, max_pages)
+        out: List[tuple] = []
+        for key in pc.prefix_page_keys(self._namespace, ctx, self.page_size,
+                                       max_pages=cap):
+            entry = self._prefix.get(key)
+            if entry is None:
+                break
+            out.append(entry)
+        self._stats["prefix_hit_pages"] += len(out)
+        return out
+
+    def _adopt_pages(self, slot: int, first_page: int, pages: List[tuple]):
+        """Copy host (k, v) pages, each [L, ps, Hkv, D], into the slot's
+        device pages from page index ``first_page`` on (one copy each for
+        K and V); the cast to the cache dtype is exact for pages that came
+        from a cache of that dtype."""
+        n = len(pages)
+        if n == 0:
+            return
+        ids = self._dev(self._table[slot, first_page:first_page + n])
+        for dst, j in ((self._k_pages, 0), (self._v_pages, 1)):
+            new = torch.stack([torch.as_tensor(pg[j]) for pg in pages], 1)
+            dst[:, ids] = new.to(device=self.device, dtype=dst.dtype)
+
+    def _publish_prefix(self, ctx: List[int], slot: int):
+        """Snapshot every full page of ``ctx`` not yet cached into the
+        local LRU (one read-back from the device).  Full pages are
+        immutable: later decode writes touch later pages."""
+        if self._prefix is None:
+            return
+        n_full = len(ctx) // self.page_size
+        keys = pc.prefix_page_keys(self._namespace, ctx, self.page_size,
+                                   max_pages=n_full)
+        todo = [(i, key) for i, key in enumerate(keys)
+                if not self._prefix.contains(key)]
+        if not todo:
+            return
+        ids = self._dev(self._table[slot, [i for i, _ in todo]])
+        k_all = self._k_pages[:, ids].cpu()  # [L, m, ps, Hkv, D]
+        v_all = self._v_pages[:, ids].cpu()
+        for j, (_, key) in enumerate(todo):
+            self._prefix.put(key, k_all[:, j].clone(), v_all[:, j].clone())
+        self._stats["prefix_published_pages"] += len(todo)
+
+    # ------------------------------------------------------------------
+    # disaggregated prefill: poll the jobs
+    # ------------------------------------------------------------------
+    def _poll_prefill(self):
+        """Move finished offloaded prefills to the ready queue; decode of
+        the active slots never waits on them."""
+        with self._lock:
+            awaiting = list(self._awaiting)
+        for entry in awaiting:
+            req, job, start = entry
+            try:
+                result = job.poll()
+            except Exception as e:  # noqa: BLE001 — typed per-request fail
+                with self._lock:
+                    if entry in self._awaiting:
+                        self._awaiting.remove(entry)
+                req.finish(error=e)
+                continue
+            if result is None:
+                continue
+            with self._lock:
+                self._awaiting.remove(entry)
+                self._ready.append((req, result, start))
 
     # ------------------------------------------------------------------
     # decode steps
     # ------------------------------------------------------------------
     def _grow(self):
-        """Allocate a page for every active slot whose next write crosses
-        a page boundary; preempt the youngest other request when the pool
-        is dry (recompute preemption)."""
+        """Allocate pages for every active slot whose write horizon (one
+        token, or ``spec_tokens`` positions in spec mode) crosses a page
+        boundary; preempt the youngest other request when the pool is dry
+        (recompute preemption)."""
+        horizon = self.spec_tokens if self._spec else 1
         for slot in range(self.max_slots):
             if not self._active[slot]:
                 continue
             pos = int(self._lengths[slot])
-            page_needed = min(pos, self.max_ctx - 1) // self.page_size
+            page_needed = min(pos + horizon - 1,
+                              self.max_ctx - 1) // self.page_size
             while page_needed >= len(self._slot_pages[slot]):
                 got = self.pool.alloc(1)
                 if got is not None:
@@ -498,49 +1227,33 @@ class LLMEngine:
                 best, best_seq = s, seq
         return best
 
-    def _preempt(self, slot: int):
-        req = self._slot_req.pop(slot)
+    def _release(self, slot: int):
+        """Free the slot's pages (the target's and the draft's, which
+        share them) and clear its lane."""
         self.pool.free(self._slot_pages[slot])
         self._slot_pages[slot] = []
         self._table[slot] = 0
         self._lengths[slot] = 0
+        self._temps[slot] = 0.0  # an idle lane samples greedily (no draws)
+        self._slot_req.pop(slot, None)
+
+    def _preempt(self, slot: int):
+        req = self._slot_req[slot]
+        self._release(slot)
         self._stats["preemptions"] += 1
         with self._lock:
             self._active[slot] = False
             self._pending.appendleft(req)  # readmitted first, from context()
 
     def _decode_once(self):
-        """One token for every slot: gather each slot's pages into a
-        [L, slots, max_ctx, Hkv, D] view (rows past a slot's length are
-        masked by cached_attention), run the model on the last tokens,
-        sample, and write the new K/V at each slot's write head."""
+        """One token for every slot: the decode step (page gather, model,
+        K/V write), then sampling at absolute position lengths + 1."""
         t0 = time.perf_counter()
-        dev = self.device
         n_active = int(self._active.sum())
-        n, L, ps = self.max_slots, self.num_layers, self.page_size
-        table = torch.from_numpy(self._table).to(dev)
-        lengths = torch.from_numpy(self._lengths).to(dev)
-        active = torch.from_numpy(self._active).to(dev)
-        k_cache = self._k_pages[:, table].reshape(
-            L, n, self.max_ctx, self.kv_heads, self.head_dim)
-        v_cache = self._v_pages[:, table].reshape(
-            L, n, self.max_ctx, self.kv_heads, self.head_dim)
-        kv = [(k_cache[i], v_cache[i]) for i in range(L)]
-        tokens = torch.from_numpy(self._last_tok).to(dev)
-        logits, new_kvs = self._model(tokens[:, None], lengths[:, None], kv,
-                                      lengths)
-        # The generated token sits at absolute position lengths + 1.
-        nxt = sample_tokens(logits[:, -1], lengths + 1,
-                            torch.from_numpy(self._temps).to(dev),
-                            torch.from_numpy(self._top_ps).to(dev),
-                            torch.from_numpy(self._seeds).to(dev))
-        newk = torch.stack([nk[0][:, 0] for nk in new_kvs])  # [L,n,Hkv,D]
-        newv = torch.stack([nk[1][:, 0] for nk in new_kvs])
-        page_col = (lengths // ps).clamp_max(self.pages_per_slot - 1)
-        page_idx = torch.where(
-            active, table[torch.arange(n, device=dev), page_col], 0)
-        self._write_kv(page_idx[None], (lengths % ps)[None], newk, newv)
-        nxt = nxt.cpu().numpy()
+        logits = self._decode(self._k_pages, self._v_pages, self._table,
+                              self._lengths, self._last_tok, self._active)
+        nxt, lps = _sample(logits, self._lengths + 1, self._temps,
+                           self._top_ps, self._seeds)
         self._decode_s += time.perf_counter() - t0
         self._stats["steps"] += 1
         self._stats["tokens"] += n_active
@@ -552,10 +1265,85 @@ class LLMEngine:
             req = self._slot_req[slot]
             tok = int(nxt[slot])
             self._last_tok[slot] = tok
-            self._append_token(slot, req, tok)
+            self._append_token(slot, req, tok, float(lps[slot]))
 
-    def _append_token(self, slot: int, req: _Request, tok: int):
+    def _timed(self, part: str, t0: float) -> float:
+        """Close a part of the speculative step at a device sync."""
+        self._sync()
+        t1 = time.perf_counter()
+        self._spec_split[part] += t1 - t0
+        return t1
+
+    def _decode_once_spec(self):
+        """Draft k-1 proposals per slot, verify the [slots, k] window in
+        one target step, accept the longest matching prefix plus the
+        target's own token.  Sampling keys depend only on (seed, absolute
+        position), so the emitted stream is the non-speculative stream."""
+        t_start = time.perf_counter()
+        k, n = self.spec_tokens, self.max_slots
+        n_active = int(self._active.sum())
+        proposals = np.zeros((n, k - 1), np.int64)
+        d_last = self._last_tok.copy()
+        t = t_start
+        for j in range(k - 1):
+            logits = self._draft_decode(
+                self._dk_pages, self._dv_pages, self._table,
+                self._lengths + j, d_last, self._active)
+            t = self._timed("draft", t)
+            d_last, _ = _sample(logits, self._lengths + j + 1, self._temps,
+                                self._top_ps, self._seeds)
+            proposals[:, j] = d_last
+            t = self._timed("draft_sample", t)
+        # Catch-up step: write the last proposal's draft K/V (position
+        # len+k-1).  On full acceptance that position is part of the valid
+        # cache next iteration, and without this write the draft would
+        # read a stale row and desync.  Its logits are not sampled (the
+        # JAX engine samples and discards them).
+        self._draft_decode(self._dk_pages, self._dv_pages, self._table,
+                           self._lengths + (k - 1), d_last, self._active)
+        t = self._timed("draft", t)
+        window = np.concatenate([self._last_tok[:, None], proposals], axis=1)
+        logits = self._verify(self._k_pages, self._v_pages, self._table,
+                              self._lengths, window, self._active)
+        t = self._timed("verify", t)
+        positions = self._lengths[:, None] + np.arange(1, k + 1)
+        sampled, v_logps = _sample(
+            logits.reshape(n * k, -1), positions.reshape(-1),
+            np.repeat(self._temps, k), np.repeat(self._top_ps, k),
+            np.repeat(self._seeds, k))
+        sampled = sampled.reshape(n, k)  # tokens at len+1..len+k
+        v_logps = v_logps.reshape(n, k)
+        self._timed("verify_sample", t)
+        self._decode_s += time.perf_counter() - t_start
+        self._stats["steps"] += 1
+        self._stats["spec_steps"] += 1
+        self._occupancy_sum += n_active / self.max_slots
+        for slot in range(self.max_slots):
+            if not self._active[slot]:
+                continue
+            req = self._slot_req[slot]
+            m = 0
+            while m < k - 1 and proposals[slot, m] == sampled[slot, m]:
+                m += 1
+            emit = m + 1  # matched proposals + the target's own token
+            self._stats["spec_proposed"] += k - 1
+            self._stats["spec_accepted"] += m
+            req.spec_proposed += k - 1
+            req.spec_accepted += m
+            self._stats["tokens"] += emit
+            self._lengths[slot] += emit
+            self._last_tok[slot] = int(sampled[slot, emit - 1])
+            for j in range(emit):
+                self._append_token(slot, req, int(sampled[slot, j]),
+                                   float(v_logps[slot, j]))
+                if not self._active[slot]:
+                    break  # retired mid-window (EOS / max_new_tokens)
+
+    def _append_token(self, slot: int, req: _Request, tok: int,
+                      logp: float):
         req.out.append(tok)
+        req.out_logps.append(logp)
+        req.out_versions.append(self._weight_version)
         finished = (len(req.out) >= req.max_new_tokens
                     or (req.eos_id is not None and tok == req.eos_id))
         if finished:
@@ -566,11 +1354,7 @@ class LLMEngine:
 
     def _retire(self, slot: int, req: _Request,
                 error: Optional[BaseException] = None):
-        self.pool.free(self._slot_pages[slot])
-        self._slot_pages[slot] = []
-        self._table[slot] = 0
-        self._lengths[slot] = 0
-        self._slot_req.pop(slot, None)
+        self._release(slot)
         with self._lock:
             self._active[slot] = False
             self._evict_consumed_locked()
@@ -658,9 +1442,12 @@ def build_model(model_kind: str = "gpt2", config_kw: Optional[dict] = None,
     preset), plus any ``GPT2Config`` field."""
     device = resolve_device(device)
     config_kw = dict(config_kw or {})
+    if model_kind == "llama":
+        raise NotImplementedError(
+            "build_model('llama') waits for the port of models/llama.py "
+            "(ROADMAP Queue 1 item 8)")
     if model_kind != "gpt2":
-        raise ValueError(f"unknown model_kind {model_kind!r} (the port has "
-                         f"gpt2 so far)")
+        raise ValueError(f"unknown model_kind {model_kind!r}")
     from ray_tpu_torch.models import GPT2, GPT2Config
 
     cfg = GPT2Config.tiny(**config_kw) if config_kw.pop("tiny", True) \
@@ -677,23 +1464,57 @@ def build_model(model_kind: str = "gpt2", config_kw: Optional[dict] = None,
     return model.to(device).eval()
 
 
+def cache_namespace_for(model_kind: str, config_kw: Optional[dict],
+                        seed: int, page_size: int,
+                        weight_version: Optional[int] = None) -> str:
+    """Stable prefix-cache namespace: everything that changes a page's
+    bytes (model family, config, init seed, page geometry, and the weight
+    version) is in the address.  ``weight_version=None`` gives the
+    unversioned base, the form to hand ``LLMEngine(cache_namespace=...)``,
+    which folds its live version in on every ``swap_weights``."""
+    kw = sorted((config_kw or {}).items())
+    base = f"{model_kind}|{kw!r}|seed{seed}|ps{page_size}"
+    if weight_version is None:
+        return base
+    return pc.versioned_namespace(base, weight_version)
+
+
 class LLMServer:
-    """Serve callable hosting one LLMEngine per replica.
+    """Serve callable hosting one LLMEngine per replica, in-process.
 
     - ``__call__({"tokens": [...], "max_new_tokens": n, "temperature": t,
       "top_p": p, "seed": s, "eos_id": e})`` answers a JSON request with
       ``{"tokens": [...]}``;
-    - ``submit_stream``/``next_chunk``: pull-based token streaming.
+    - ``submit_stream``/``next_chunk``: pull-based token streaming;
+    - ``swap_weights``, ``generate_rollouts``, ``request_stats``: the
+      RLHF generation surface.
 
-    Running it as a Serve deployment over the actor runtime, the
-    object-plane batch path, speculative decoding, the prefix cache and
-    disaggregated prefill are still to be ported."""
+    ``draft_config_kw`` (+ ``spec_tokens``) turns on speculative decoding
+    with a draft built from the same seed; ``prefix_cache=True`` the local
+    prefix cache; ``prefill=`` (a ``PrefillWorker``) disaggregated
+    prefill.  As a Serve deployment over the actor runtime, with the
+    object-plane batch path (``generate_batch``, ``generate_many``) and
+    the autoscaling metric, it waits for ROADMAP Queue 1 item 1a; those
+    entry points raise."""
 
     def __init__(self, model_kind: str = "gpt2",
                  config_kw: Optional[dict] = None, seed: int = 0,
-                 device=None, **engine_kw):
+                 draft_config_kw: Optional[dict] = None,
+                 spec_tokens: Optional[int] = None, prefix_cache=None,
+                 prefix_directory=None, prefill=None, device=None,
+                 **engine_kw):
         model = build_model(model_kind, config_kw, seed, device)
-        self.engine = LLMEngine(model, device=device, **engine_kw)
+        draft_model = None
+        if draft_config_kw is not None:
+            draft_model = build_model(model_kind, draft_config_kw, seed,
+                                      device)
+        self.engine = LLMEngine(
+            model, draft_model=draft_model, spec_tokens=spec_tokens,
+            prefix_cache=prefix_cache, prefix_directory=prefix_directory,
+            prefill=prefill,
+            cache_namespace=cache_namespace_for(
+                model_kind, config_kw, seed, engine_kw.get("page_size", 16)),
+            device=device, **engine_kw)
 
     @staticmethod
     def _sampling_of(request: dict) -> SamplingParams:
@@ -708,6 +1529,12 @@ class LLMServer:
                                  request.get("eos_id"),
                                  sampling=self._sampling_of(request))
         return {"tokens": self.engine.result(rid, timeout=120.0)}
+
+    def generate_batch(self, prompts, max_new_tokens: int = 16,
+                       eos_id: Optional[int] = None, as_refs: bool = True,
+                       sampling: Optional[list] = None):
+        raise NotImplementedError(
+            f"generate_batch (the object-plane batch path) {_RUNTIME}")
 
     def submit_stream(self, prompt, max_new_tokens: int = 16,
                       eos_id: Optional[int] = None,
@@ -726,11 +1553,38 @@ class LLMServer:
             req.consumed = True
         return chunk
 
+    def swap_weights(self, params, version: int,
+                     timeout: Optional[float] = 60.0) -> int:
+        """Hot-swap this replica's weights (a ``state_dict``)."""
+        return self.engine.swap_weights(params, version, timeout=timeout)
+
+    def generate_rollouts(self, prompts, max_new_tokens: int = 16,
+                          eos_id: Optional[int] = None,
+                          sampling: Optional[list] = None):
+        """Version-stamped rollouts (tokens + behavior logprobs)."""
+        return self.engine.generate_rollouts(
+            prompts, max_new_tokens, eos_id, sampling=sampling)
+
     def stats(self) -> dict:
         return self.engine.stats()
+
+    def request_stats(self, rid: int) -> dict:
+        return self.engine.request_stats(rid)
+
+    def autoscale_metric(self) -> float:
+        raise NotImplementedError(
+            f"autoscale_metric (LLMServer as a Serve deployment) {_RUNTIME}")
 
     def drain(self):
         """Teardown: close the engine (fails in-flight requests with a
         typed error)."""
         self.engine.close()
         return True
+
+
+def generate_many(handle, prompts, max_new_tokens: int = 16,
+                  eos_id: Optional[int] = None,
+                  sampling: Optional[List[SamplingParams]] = None,
+                  timeout: float = 120.0) -> List[List[int]]:
+    """The client half of the object-plane request path."""
+    raise NotImplementedError(f"generate_many {_RUNTIME}")
