@@ -29,6 +29,17 @@ three main paths with random weights from a seed:
   B=16 x S=1024 and B=4 x S=4096, every layer running the forward with
   the LSE and both backward kernels; then one fp32 step of a 2-layer
   GPT-2 small on the card against the same step on the CPU;
+- the Llama family at ``llama_1b``'s shape (the TinyLlama-1.1B config:
+  22 layers, width 2048, 32 query heads over 4 K/V heads):
+  ``[llama-serve]`` serves it in bf16 through ``LLMServer`` (8 requests,
+  prompts of 88-1316 tokens, 64 greedy tokens; pages at 4 K/V heads),
+  then holds the engine's fp32 tokens to ``NaiveLM(width=2048)`` (the
+  fp32 flash forward in each layer) and the bf16 logits to the fp32
+  ones; ``[llama-train]`` trains it at ``bench_llama_3d``'s B=8 S=1024
+  (bf16 over fp32 parameters, ``adamw(3e-4)``; 22 launches of each
+  kernel a step, K and V repeated from the 4 K/V heads; one profiled
+  step); ``[llama-train-fp32]`` compares one fp32 step of its 2-layer cut,
+  card against CPU;
 - reinforcement learning (``[ppo]``): Anakin PPO on Breakout-Atari84 at
   ``bench.py::bench_ppo_atari84``'s configuration (2048 envs x 64 steps,
   the Nature CNN, fp32), after its env and module are held against the
@@ -50,7 +61,8 @@ every fp32 kernel: ``fma``); the script checks and prints the routes
 after the build, and the main paths run in those dtypes.  Then it times
 each kernel (in CUDA graphs, without the host's enqueue) beside its
 bound, its achieved TFLOP/s, its plain version and PyTorch's SDPA, in
-bf16 at the training shapes and in fp32 at the fp32 step's shape.
+bf16 at the training shapes (GPT-2's two and llama_1b's) and in fp32 at
+the fp32 step's shape.
 Every phase raises on failure and nothing is caught, so any failure
 exits non-zero.
 
@@ -66,6 +78,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import copy
+import dataclasses
 import itertools
 import json
 import subprocess
@@ -76,7 +89,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ray_tpu_torch.models import gpt2_loss_fn
+from ray_tpu_torch.models import (
+    Llama,
+    LlamaConfig,
+    gpt2_loss_fn,
+    llama_loss_fn,
+)
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as attn
 from ray_tpu_torch.rllib import (
@@ -121,6 +139,11 @@ LSE_ATOL = 1e-4
 ODD_TILE_LENGTHS = (192, 320)
 # The path's attention shape: NaiveLM at width 1024 on GPT-2 small.
 PATH_SHAPE = (1, 1024, 12, 64)
+# The Llama paths' attention shapes (B, L, H; D = 64), added to both
+# grids: the llama_1b training step's, bf16 8x32x1024x64 with the LSE,
+# and its NaiveLM oracle's, fp32 1x32x2048x64.
+LLAMA_KERNEL_SHAPES = ((8, 1024, 32, torch.bfloat16),
+                       (1, 2048, 32, torch.float32))
 SEED = 0
 PROMPT_LENS = (17, 60, 123, 200, 256, 300)
 NEW_TOKENS = 32
@@ -150,6 +173,11 @@ AUTOGRAD_ATOL = 1e-4
 # :270), warm-up step then timed steps.
 TRAIN_SHAPES = ((16, 1024, 10), (4, 4096, 5))  # (B, S, timed steps)
 LN_VOCAB = float(np.log(50257))
+# [timing-bwd]'s shapes (B, L, H, layout of q, k, v): GPT-2's two training
+# shapes (the views of a fused QKV output) and llama_1b's (contiguous:
+# rope and the GQA expand make new tensors).
+TIMING_BWD_SHAPES = ((16, 1024, 12, "fused"), (4, 4096, 12, "fused"),
+                     (8, 1024, 32, "contiguous"))
 FIRST_LOSS_SLACK = 0.5
 # One fp32 step of a 2-layer GPT-2 small, card (the three kernels) against
 # CPU (the plain attention path), TF32 off.  The loss is a mean over 1023
@@ -413,15 +441,17 @@ def phase_kernel_grid():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     n = 0
     dtypes = (torch.bfloat16, torch.float32)
-    # The base grid, then lengths that are odd multiples of the 64-row
-    # tile (B = 1, with the LSE).
-    cases = [(*c, (True, False)) for c in itertools.product(
-        (1, 4), (128, 1024, 2048), (64, 128), dtypes)]
-    cases += [(*c, (True,)) for c in itertools.product(
-        (1,), ODD_TILE_LENGTHS, (64, 128), dtypes)]
+    # The base grid (12 heads), then lengths that are odd multiples of the
+    # 64-row tile (B = 1, with the LSE), then the Llama paths' shapes.
+    cases = [(b, n, 12, d, dt, (True, False)) for b, n, d, dt in
+             itertools.product((1, 4), (128, 1024, 2048), (64, 128), dtypes)]
+    cases += [(1, n, 12, d, dt, (True,)) for n, d, dt in
+              itertools.product(ODD_TILE_LENGTHS, (64, 128), dtypes)]
+    cases += [(b, n, h, 64, dt, (True, False))
+              for b, n, h, dt in LLAMA_KERNEL_SHAPES]
     with torch.no_grad():
-        for b, length, d, dtype, lse_cases in cases:
-            fused = fused_qkv(b, length, 12, d, dtype, gen)
+        for b, length, h, d, dtype, lse_cases in cases:
+            fused = fused_qkv(b, length, h, d, dtype, gen)
             for layout, causal, with_lse in itertools.product(
                     ("contiguous", "fused_qkv"), (True, False), lse_cases):
                 q, k, v = fused if layout == "fused_qkv" else \
@@ -437,7 +467,8 @@ def phase_kernel_grid():
                     if with_lse else 0.0
                 if not (err <= TOL[dtype] and lse_err <= LSE_ATOL):
                     raise AssertionError(
-                        f"flash kernel disagrees (B={b} L={length} D={d} "
+                        f"flash kernel disagrees (B={b} L={length} H={h} "
+                        f"D={d} "
                         f"{str(dtype)[6:]} {layout} causal={causal} "
                         f"lse={with_lse}): error {err:.3g}, |dLSE| "
                         f"{lse_err:.3g}")
@@ -498,17 +529,20 @@ def phase_kernel_bwd_grid():
         n += 1
 
     dtypes = (torch.bfloat16, torch.float32)
-    for b, length, d, dtype in itertools.chain(
-            itertools.product((1, 4), (128, 1024, 2048), (64, 128), dtypes),
-            itertools.product((1,), ODD_TILE_LENGTHS, (64, 128), dtypes)):
-        fused = fused_qkv(b, length, 12, d, dtype, gen)
+    for b, length, h, d, dtype in itertools.chain(
+            ((b, n, 12, d, dt) for b, n, d, dt in itertools.product(
+                (1, 4), (128, 1024, 2048), (64, 128), dtypes)),
+            ((1, n, 12, d, dt) for n, d, dt in itertools.product(
+                ODD_TILE_LENGTHS, (64, 128), dtypes)),
+            ((b, n, h, 64, dt) for b, n, h, dt in LLAMA_KERNEL_SHAPES)):
+        fused = fused_qkv(b, length, h, d, dtype, gen)
         for layout, causal in itertools.product(
                 ("contiguous", "fused_qkv"), (True, False)):
             q, k, v = fused if layout == "fused_qkv" else \
                 [x.contiguous() for x in fused]
             got, want, _, _ = _bwd_case(q, k, v, causal, gen)
-            check(got, want, f"B={b} L={length} D={d} {str(dtype)[6:]} "
-                  f"{layout} causal={causal}")
+            check(got, want, f"B={b} L={length} H={h} D={d} "
+                  f"{str(dtype)[6:]} {layout} causal={causal}")
     for lq, lk in ((1024, 2048), (2048, 1024)):
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn(1, lq, 12, 64, device="cuda",
@@ -1173,43 +1207,283 @@ def phase_train(card) -> dict:
     return launches
 
 
-def phase_train_fp32():
-    """One fp32 step of a 2-layer GPT-2 small (full width), B=1, S=1024,
-    TF32 off: on the card (attention through the three kernels) and on
-    the CPU copy of the same weights (mha_attention takes the plain path
-    by device).  Loss and every parameter's gradient compared."""
-    kw = {"tiny": False, "dtype": torch.float32,
-          "num_layers": FP32_STEP_LAYERS}
-    ids = np.random.default_rng(SEED + 4).integers(0, 50257, size=(1, 1024))
+def phase_train_fp32(tag="train-fp32", kind="gpt2",
+                     kw=(("tiny", False),), loss_fn=gpt2_loss_fn):
+    """One fp32 step of a 2-layer ``kind`` model at its full width (GPT-2
+    small, or llama_1b for ``[llama-train-fp32]``), B=1, S=1024, TF32 off:
+    on the card (attention through the three kernels) and on the CPU copy
+    of the same weights (mha_attention takes the plain path by device).
+    Loss and every parameter's gradient compared."""
+    kw = {**dict(kw), "dtype": torch.float32, "num_layers": FP32_STEP_LAYERS}
     losses, grads = {}, {}
     for device in ("cuda", "cpu"):
-        model = build_model("gpt2", kw, seed=SEED, device=device)
+        model = build_model(kind, kw, seed=SEED, device=device)
+        ids = np.random.default_rng(SEED + 4).integers(
+            0, model.config.vocab_size, size=(1, 1024))
         zero_launches()
-        loss = gpt2_loss_fn(model, {"input_ids":
-                                    torch.from_numpy(ids).to(device)})
+        loss = loss_fn(model, {"input_ids": torch.from_numpy(ids).to(
+            next(model.parameters()).device)})
         loss.backward()
         if device == "cuda":
             want = {name: FP32_STEP_LAYERS for name in attn.LAUNCHES}
             if attn.LAUNCHES != want:
-                raise AssertionError(f"[train-fp32] launches "
-                                     f"{attn.LAUNCHES}, expected {want}")
+                raise AssertionError(f"[{tag}] launches {attn.LAUNCHES}, "
+                                     f"expected {want}")
         losses[device] = loss.item()
         grads[device] = {n: p.grad.detach().cpu()
                          for n, p in model.named_parameters()}
+        del model, loss
+    torch.cuda.empty_cache()
     rel = {n: ((g - grads["cpu"][n]).norm()
                / grads["cpu"][n].norm().clamp_min(1e-30)).item()
            for n, g in grads["cuda"].items()}
     worst = max(rel, key=rel.get)
     loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
-    log(f"[train-fp32] 2-layer GPT-2 small B=1 S=1024 fp32, card vs CPU: "
-        f"loss {losses['cuda']:.7f} vs {losses['cpu']:.7f} (rel "
+    log(f"[{tag}] 2-layer {kind} B=1 S=1024 fp32 at full width, card vs "
+        f"CPU: loss {losses['cuda']:.7f} vs {losses['cpu']:.7f} (rel "
         f"{loss_rel:.3g}, bound {FP32_LOSS_RTOL}); worst gradient relative "
         f"norm error {rel[worst]:.3g} ({worst}; bound {FP32_GRAD_REL}) "
         f"over {len(rel)} parameters")
     if not loss_rel <= FP32_LOSS_RTOL:
-        raise AssertionError("[train-fp32] losses differ")
+        raise AssertionError(f"[{tag}] losses differ")
     if not rel[worst] <= FP32_GRAD_REL:
-        raise AssertionError(f"[train-fp32] gradients differ: {rel}")
+        raise AssertionError(f"[{tag}] gradients differ: {rel}")
+
+
+# ---------------------------------------------------------------------------
+# The Llama family at llama_1b's shape (the TinyLlama-1.1B config)
+# ---------------------------------------------------------------------------
+# LlamaConfig.llama_1b's fields (checked against it), as build_model takes
+# them: 22 layers, width 2048, 32 query heads over 4 K/V heads, SwiGLU
+# 5632, vocab 32000, context 2048.
+LLAMA_1B = {"tiny": False, "vocab_size": 32000,
+            "max_position_embeddings": 2048, "num_layers": 22,
+            "num_heads": 32, "num_kv_heads": 4, "hidden_size": 2048,
+            "intermediate_size": 5632}
+# [llama-serve]: 8 requests, prompts of 64-1536 tokens from a seed (one
+# past 1024 at least), 64 greedy tokens each, 8 slots, max_ctx 2048; the
+# fp32 oracle leg: 2 prompts (one past 1024) x 16 tokens against
+# NaiveLM(width=2048).
+LLAMA_USERS, LLAMA_NEW, LLAMA_PROMPT_LENS = 8, 64, (64, 1537)
+LLAMA_LONG_PROMPT = 1024
+LLAMA_ENGINE = {"max_slots": 8, "page_size": 16, "max_ctx": 2048}
+LLAMA_ORACLE_LENS, LLAMA_ORACLE_NEW = (480, 1200), 16
+# K and V of 22 layers x 4 K/V heads x 64 in bf16: the GQA page size of a
+# token (180,224 bytes at 32 heads).
+LLAMA_KV_BYTES = 22 * 2 * 4 * 64 * 2
+# [llama-train]: bench_llama_3d's full shape (bench.py:437-438), B=8
+# S=1024, unpipelined on one card; warm-up step, then timed steps.
+LLAMA_TRAIN = (8, 1024, 8)
+# The first loss: the untied head (lecun-normal, variance 1/2048) over the
+# final norm's unit-RMS output gives logits of variance 1, so the
+# expected cross-entropy of a random label is ln 32000 + 1/2 = 10.873
+# (E[log-sum-exp] of 32000 unit normals), not ln 32000.
+LLAMA_FIRST_LOSS = float(np.log(32000)) + 0.5
+LLAMA_FIRST_LOSS_SLACK = 0.25
+# Device time of a training step by kernel name: the flash kernels, the
+# fp32 matmuls (the lm_head and its gradients: TF32 is off), the other
+# matmuls (bf16, cuBLAS), AdamW's multi-tensor kernels, the rest.
+LLAMA_STEP_GROUPS = (("flash", ("flash_",)),
+                     ("fp32 matmul", ("sgemm", "f32f32_f32f32")),
+                     ("matmul", ("gemm", "xmma", "cutlass", "nvjet")),
+                     ("optimizer", ("multi_tensor_apply",)))
+
+
+def llama_copy(model, **changes):
+    """A ``Llama`` of ``model``'s config with ``changes``, holding a copy
+    of its weights, made on the card (the seeded CPU init runs once)."""
+    cfg = dataclasses.replace(model.config, **changes)
+    with torch.device("meta"):
+        copy_ = Llama(cfg)
+    copy_ = copy_.to_empty(device=model.embed.device)
+    copy_.load_state_dict(model.state_dict())
+    return copy_.eval()
+
+
+def phase_llama_serve(card) -> tuple:
+    """llama_1b in bf16 through LLMServer (8 requests, prompts 64-1536, 64
+    greedy tokens, 8 slots): prefill and decode ms, tokens/s, peak memory,
+    the KV bytes a token read back from the page arrays.  Then, on the
+    same weights in fp32 (TF32 off), the engine's tokens for 2 prompts
+    against NaiveLM(width=2048), whose forwards run the flash forward in
+    each layer, and the bf16 model's full-context logits against the fp32
+    model's.  Returns the launches of each path and the fp32 model."""
+    t0 = time.perf_counter()
+    server = LLMServer("llama", {**LLAMA_1B, "dtype": torch.bfloat16},
+                       seed=SEED, **LLAMA_ENGINE)
+    init_s = time.perf_counter() - t0
+    m16 = server.engine._model
+    cfg = m16.config
+    if dataclasses.replace(cfg, dtype=torch.bfloat16) != \
+            LlamaConfig.llama_1b():
+        raise AssertionError(f"LLAMA_1B is not llama_1b: {cfg}")
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(*LLAMA_PROMPT_LENS, size=LLAMA_USERS)
+    if lengths.max() <= LLAMA_LONG_PROMPT:
+        raise AssertionError(f"no prompt past {LLAMA_LONG_PROMPT}: "
+                             f"{lengths}")
+    requests = [{"tokens": [int(t) for t in rng.integers(
+        0, cfg.vocab_size, size=int(n))], "max_new_tokens": LLAMA_NEW}
+        for n in lengths]
+    eng = server.engine
+    kv_bytes = (eng._k_pages.numel() + eng._v_pages.numel()) * \
+        eng._k_pages.element_size() // (eng._k_pages.shape[1]
+                                        * eng.page_size)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    try:
+        outs, seconds = serve(server, requests)
+        st = server.stats()
+    finally:
+        server.drain()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    engine_line("llama-serve", st, seconds)
+    log(f"[llama-serve] {card} | llama_1b bf16 (fp32 parameters, "
+        f"{cfg.n_params} of them; seeded init on the CPU and copy "
+        f"{init_s:.1f} s), {LLAMA_USERS} requests, prompts "
+        f"{int(lengths.min())}-{int(lengths.max())}, {LLAMA_NEW} greedy "
+        f"tokens, {LLAMA_ENGINE['max_slots']} slots, max_ctx "
+        f"{LLAMA_ENGINE['max_ctx']}: decode "
+        f"{st['decode_seconds'] / max(st['steps'], 1) * 1e3:.2f} ms/step, "
+        f"prefill {st['prefill_seconds'] / max(st['prefills'], 1) * 1e3:.1f}"
+        f" ms each, {st['tokens_generated'] / seconds:.1f} generated "
+        f"tokens/s; peak memory {peak:.2f} GiB; KV pages {kv_bytes} bytes a "
+        f"token (expected {LLAMA_KV_BYTES}); flash launches "
+        f"{attn.LAUNCHES}")
+    if kv_bytes != LLAMA_KV_BYTES:
+        raise AssertionError(f"[llama-serve] {kv_bytes} KV bytes a token")
+    if any(len(o) != LLAMA_NEW for o in outs):
+        raise AssertionError("[llama-serve] a request came back short")
+    # fp32, TF32 off: the engine's tokens against NaiveLM(width=2048).
+    m32 = llama_copy(m16, dtype=torch.float32)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, size=n)]
+               for n in LLAMA_ORACLE_LENS]
+    eng = LLMEngine(m32, **LLAMA_ENGINE)
+    try:
+        got = [eng.result(eng.submit(p, LLAMA_ORACLE_NEW), timeout=600)
+               for p in prompts]
+    finally:
+        eng.close()
+    serve_launches = dict(attn.LAUNCHES)  # both engine runs
+    zero_launches()
+    t0 = time.perf_counter()
+    naive = NaiveLM(m32, width=cfg.max_position_embeddings)
+    want = [naive.generate(p, LLAMA_ORACLE_NEW) for p in prompts]
+    naive_s = time.perf_counter() - t0
+    oracle = dict(attn.LAUNCHES)
+    steps = sum(len(w) for w in want)
+    log(f"[llama-serve] fp32 engine vs NaiveLM(width="
+        f"{cfg.max_position_embeddings}) on prompts of "
+        f"{LLAMA_ORACLE_LENS} tokens x {LLAMA_ORACLE_NEW}: {steps} oracle "
+        f"steps in {naive_s:.2f} s, flash launches {oracle} "
+        f"({oracle['flash_fwd'] / steps:.1f} a step), engine paths "
+        f"{serve_launches}")
+    if any(serve_launches.values()):
+        raise AssertionError(f"[llama-serve] the engine launched "
+                             f"{serve_launches}")
+    if oracle != {"flash_fwd": cfg.num_layers * steps, "flash_dq": 0,
+                  "flash_dkv": 0}:
+        raise AssertionError(f"[llama-serve] NaiveLM launched {oracle} in "
+                             f"{steps} steps")
+    for p, g, w in zip(prompts, got, want):
+        if g != w:
+            i = next(j for j, (a, b) in enumerate(zip(g, w)) if a != b)
+            m = margin_at(m32, p + w[:i])
+            raise AssertionError(
+                f"[llama-serve] engine != NaiveLM for prompt length "
+                f"{len(p)} at token {i}: {g[i]} vs {w[i]}; top-1 minus "
+                f"top-2 logit there {m:.3g}")
+    # bf16 against fp32, one full-context forward at width 2048 (the
+    # flash forward in each layer), as GPT-2's bf16 leg.
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(
+        1, cfg.max_position_embeddings))).to(m32.embed.device)
+    with torch.no_grad():
+        l32 = m32(ids)
+        l16 = m16(ids)
+    err = (l16 - l32).abs().max().item()
+    scale = l32.abs().max().item()
+    agree = (l16.argmax(-1) == l32.argmax(-1)).float().mean().item()
+    log(f"[llama-serve] {len(prompts)} fp32 requests token-identical to "
+        f"NaiveLM; bf16 full-context logits (1x"
+        f"{cfg.max_position_embeddings}) vs fp32: max |d| "
+        f"{err:.4g} of max |logit| {scale:.4g} ({err / scale:.2%}, bound "
+        f"{BF16_LOGITS_REL:.0%}); argmax agreement {agree:.2%}")
+    if not (err <= BF16_LOGITS_REL * scale and torch.isfinite(l16).all()):
+        raise AssertionError("[llama-serve] bf16 logits too far from fp32")
+    del m16, l16, l32, naive, eng
+    torch.cuda.empty_cache()
+    return {"llama-serve": serve_launches, "llama-oracle": oracle}, m32
+
+
+def phase_llama_train(card, model) -> dict:
+    """llama_1b training steps at bench_llama_3d's full shape, B=8 S=1024,
+    unpipelined: ``model`` (bf16 compute over fp32 parameters, the seeded
+    weights), adamw(3e-4), seeded ids, every layer running the
+    forward with the LSE and both backward kernels.  One warm-up step,
+    then timed steps ended by one device read of the last loss; then one
+    profiled step, its device time by ``LLAMA_STEP_GROUPS``.  Returns the
+    launches of each kernel in the timed window."""
+    b, length, iters = LLAMA_TRAIN
+    cfg = model.config
+    step = make_train_step(model, adamw(model.parameters(), 3e-4),
+                           llama_loss_fn)
+    ids = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=(b, length))).to(model.embed.device)
+    batch = {"input_ids": ids}
+    per_step = {name: cfg.num_layers for name in attn.LAUNCHES}
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    first = step(batch).item()
+    if attn.LAUNCHES != per_step:
+        raise AssertionError(f"[llama-train] warm-up step launched "
+                             f"{attn.LAUNCHES}, expected {per_step}")
+    zero_launches()
+    t0 = time.perf_counter()
+    losses = [step(batch) for _ in range(iters)]
+    last = losses[-1].item()  # the one device read: the barrier
+    seconds = time.perf_counter() - t0
+    counted = dict(attn.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {name: n * iters for name, n in per_step.items()}
+    if counted != want:
+        raise AssertionError(f"[llama-train] {iters} steps launched "
+                             f"{counted}, expected {want}")
+    losses = [first] + torch.stack(losses).tolist()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[llama-train] losses {losses}")
+    if abs(first - LLAMA_FIRST_LOSS) > LLAMA_FIRST_LOSS_SLACK:
+        raise AssertionError(f"[llama-train] first loss {first:.4f} not "
+                             f"within {LLAMA_FIRST_LOSS_SLACK} of ln 32000 "
+                             f"+ 1/2 = {LLAMA_FIRST_LOSS:.4f}")
+    if not last < first:
+        raise AssertionError(f"[llama-train] loss did not fall ({first:.4f}"
+                             f" -> {last:.4f})")
+    flops_per_token = (6 * cfg.n_params
+                       + 12 * cfg.num_layers * cfg.hidden_size * length)
+    tokens_per_s = iters * b * length / seconds
+    mfu = tokens_per_s * flops_per_token / PEAK_OPS_PER_S[torch.bfloat16]
+    routes = {name: r["bfloat16"] for name, r in routes_by_dtype().items()}
+    log(f"[llama-train] {card} | llama_1b B={b} S={length} bf16/fp32-params "
+        f"adamw: {iters} steps in {seconds:.3f} s = "
+        f"{seconds / iters * 1e3:.1f} ms/step, {tokens_per_s:.0f} tokens/s, "
+        f"MFU {mfu:.4f} (N={cfg.n_params} with the embedding, "
+        f"{flops_per_token / 1e9:.3f} GFLOP/token, bf16 peak); loss "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; launches per step "
+        f"{per_step}, bf16 routes {routes}; peak memory {peak:.2f} GiB")
+    prof = profile_device(lambda: step(batch), LLAMA_STEP_GROUPS)
+    step_ms = seconds / iters * 1e3
+    groups = ", ".join(f"{g} {ms:.1f}" for g, ms in sorted(
+        prof["groups"].items(), key=lambda kv: -kv[1]))
+    top = "; ".join(f"{name[:60]} x{n} {ms:.1f} ms"
+                    for name, (n, ms) in prof["top"])
+    log(f"[llama-train] {card} | one profiled step: device "
+        f"{prof['device_ms']:.1f} ms, {prof['device_ms'] / step_ms:.1%} of "
+        f"a timed step ({prof['wall_ms']:.1f} ms of wall time under the "
+        f"profiler), {prof['device_ops']} device ops, "
+        f"{prof['launch_calls']} launch calls; by group (ms): {groups}; "
+        f"top: {top}")
+    del step, losses
+    return counted
 
 
 def phase_timing(card) -> dict:
@@ -1263,8 +1537,8 @@ def phase_timing(card) -> dict:
 
 
 def phase_timing_bwd(card) -> dict:
-    """At each training shape (bf16, causal, q/k/v the views of a fused
-    QKV output): the forward with the LSE held against the plain forward
+    """At each training shape (bf16, causal, ``TIMING_BWD_SHAPES``'s
+    layout): the forward with the LSE held against the plain forward
     (O and LSE), dq and dkv held against the plain backward, then timed:
     dq, dkv, the two together and ``_bwd_operands`` alone (Delta and the
     checks, the rest of the pair's time), the forward with the LSE and
@@ -1274,9 +1548,11 @@ def phase_timing_bwd(card) -> dict:
     shape."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     by_shape = {name: {} for name in ("flash_fwd", "flash_dq", "flash_dkv")}
-    for b, length, _ in TRAIN_SHAPES:
-        shape = f"{b}x12x{length}x64"
-        q, k, v = fused_qkv(b, length, 12, 64, torch.bfloat16, gen)
+    for b, length, h, layout in TIMING_BWD_SHAPES:
+        shape = f"{b}x{h}x{length}x64"
+        q, k, v = fused_qkv(b, length, h, 64, torch.bfloat16, gen)
+        if layout == "contiguous":
+            q, k, v = (x.contiguous() for x in (q, k, v))
         d_out = torch.randn(q.shape, device="cuda",
                             generator=gen).to(torch.bfloat16)
         scale = 64 ** -0.5
@@ -1344,14 +1620,14 @@ def phase_timing_bwd(card) -> dict:
         bounds = {name: flash_bound(q, True, name, with_lse=True)
                   for name in ("fwd", "dq", "dkv", "bwd")}
         routes = {name: r["bfloat16"] for name, r in routes_by_dtype().items()}
-        log(f"[timing-bwd] {card} | {shape} bf16 causal fused, rates on the "
-            f"visible pairs: fwd+LSE ({routes['flash_fwd']}) "
+        log(f"[timing-bwd] {card} | {shape} bf16 causal {layout}, rates on "
+            f"the visible pairs: fwd+LSE ({routes['flash_fwd']}) "
             f"{rate_line(q, True, 'fwd', t['fwd_lse'], True)}; dq "
             f"({routes['flash_dq']}) {rate_line(q, True, 'dq', t['dq'])}; "
             f"dkv ({routes['flash_dkv']}) "
             f"{rate_line(q, True, 'dkv', t['dkv'])}; dq+dkv "
             f"{rate_line(q, True, 'bwd', t['bwd'])}")
-        log(f"[timing-bwd] {card} | {shape} bf16 causal fused: "
+        log(f"[timing-bwd] {card} | {shape} bf16 causal {layout}: "
             f"dq {t['dq']:.4f} ms (bound {bounds['dq'][0]:.4f}, "
             f"{bounds['dq'][1]}); dkv {t['dkv']:.4f} ms (bound "
             f"{bounds['dkv'][0]:.4f}, {bounds['dkv'][1]}); dq+dkv (with "
@@ -1532,13 +1808,13 @@ DEVICE_GROUPS = (("layout", ("nhwcToNchw", "nchwToNhwc")),
                                 "fprop", "xmma", "cutlass", "fft")))
 
 
-def profile_device(fn) -> dict:
+def profile_device(fn, groups=DEVICE_GROUPS) -> dict:
     """What ``fn()`` puts on the card, from ``torch.profiler``: the device
     operations it ran (kernels, memsets, copies), the kernel-launch calls
     the host made (``cudaLaunchKernel``, ``cuLaunchKernel``), the device
     time summed over those operations (one stream: they do not overlap),
-    that time by ``DEVICE_GROUPS``, and the six operations that took the
-    most of it, with their counts."""
+    that time by ``groups`` (first match of a name's words), and the six
+    operations that took the most of it, with their counts."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1549,22 +1825,25 @@ def profile_device(fn) -> dict:
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
+    # A user annotation (the optimizer's "Optimizer.step#...") also has a
+    # span on the device's timeline, over kernels counted on their own.
     device = {e.key: (e.count, getattr(e, "self_device_time_total", getattr(
         e, "self_cuda_time_total", 0)) / 1e3)
               for e in events
-              if e.device_type == torch.autograd.DeviceType.CUDA}
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)}
     top = sorted(device.items(), key=lambda kv: -kv[1][1])[:6]
-    groups = {}
+    by_group = {}
     for name, (_, ms) in device.items():
-        group = next((g for g, words in DEVICE_GROUPS if any(
+        group = next((g for g, words in groups if any(
             w in name for w in words)), "other")
-        groups[group] = groups.get(group, 0.0) + ms
+        by_group[group] = by_group.get(group, 0.0) + ms
     return {"device_ops": sum(n for n, _ in device.values()),
             "launch_calls": sum(e.count for e in events
                                 if "LaunchKernel" in e.key),
             "device_ms": sum(ms for _, ms in device.values()),
             "wall_ms": wall_ms, "top": top, "kinds": len(device),
-            "groups": groups}
+            "groups": by_group}
 
 
 def learn_to_floor(algo, tag, floor, max_iters, target=None) -> dict:
@@ -2014,6 +2293,15 @@ def main():
     torch.cuda.empty_cache()
     train_launches = phase_train(card)
     phase_train_fp32()
+    t_phase = time.perf_counter()
+    llama, model = phase_llama_serve(card)
+    model = llama_copy(model, dtype=torch.bfloat16)
+    llama["llama-train"] = phase_llama_train(card, model)
+    del model
+    torch.cuda.empty_cache()
+    phase_train_fp32("llama-train-fp32", "llama", LLAMA_1B.items(),
+                     llama_loss_fn)
+    log(f"[llama] {time.perf_counter() - t_phase:.1f} s")
     timing = phase_timing(card)
     timing_bwd = phase_timing_bwd(card)
     phase_timing_fp32(card)
@@ -2035,7 +2323,7 @@ def main():
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     by_path = {"serve": {"flash_fwd": serve_launches}, **serving,
                **{f"train {tag}": n for tag, n in train_launches.items()},
-               "ppo": ppo["flash"], **rl}
+               **llama, "ppo": ppo["flash"], **rl}
     # dq's and dkv's top-level fields are those of the first training
     # shape; the forward's are the serving shape's.
     first = next(iter(timing_bwd["flash_dq"]))

@@ -12,6 +12,17 @@ names of ``ray_tpu/models/gpt2.py::_AXIS_BY_NAME``:
   -> ``h.{i}.<name>.{weight [out, in] (transposed), bias}``;
 - ``wte`` and ``wpe`` as they are; ``ln_f`` as a LayerNorm.
 
+``llama_params_from_jax``, for ``ray_tpu_torch.models.Llama``, with the
+names of ``ray_tpu/models/llama.py``:
+
+- ``embed/embedding`` [V, h] -> ``embed``;
+- ``layer_{i}/attn/{q,k,v,o}_proj/kernel`` and
+  ``layer_{i}/mlp/{gate,up,down}_proj/kernel`` [in, out] ->
+  ``layers.{i}.attn|mlp.<name>.weight`` [out, in] (transposed; no bias);
+- ``layer_{i}/attn_norm|mlp_norm/scale`` -> ``layers.{i}.<norm>.weight``,
+  ``final_norm/scale`` -> ``final_norm.weight``;
+- ``lm_head/kernel`` [h, V] -> ``lm_head.weight`` [V, h].
+
 ``actor_critic_from_flax``, for ``ray_tpu_torch.rllib.DiscreteActorCritic``
 (and for a lone ``MLP``, ``NatureCNN`` or ``MinAtarCNN``):
 
@@ -92,6 +103,53 @@ def gpt2_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                     raise KeyError(f"unknown GPT-2 layer {name}/{layer}")
         else:
             raise KeyError(f"unknown GPT-2 parameter {name!r}")
+    return out
+
+
+_LLAMA_DENSE = {"attn": ("q_proj", "k_proj", "v_proj", "o_proj"),
+                "mlp": ("gate_proj", "up_proj", "down_proj")}
+
+
+def _only(prefix: str, sub: Mapping[str, Any], leaf: str):
+    if not isinstance(sub, Mapping) or set(sub) != {leaf}:
+        raise KeyError(f"{prefix}: expected {leaf}, got "
+                       f"{sorted(sub) if isinstance(sub, Mapping) else sub}")
+    return sub[leaf]
+
+
+def llama_params_from_jax(tree: Mapping[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """flax Llama params (nested dict of numpy arrays) -> port
+    state_dict.  Raises ``KeyError`` on a name it does not know, so no
+    parameter is dropped silently."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, sub in tree.items():
+        if name == "embed":
+            out["embed"] = _tensor(_only(name, sub, "embedding"))
+        elif name == "final_norm":
+            out["final_norm.weight"] = _tensor(_only(name, sub, "scale"))
+        elif name == "lm_head":
+            out["lm_head.weight"] = _tensor(
+                np.asarray(_only(name, sub, "kernel")).T)
+        elif re.fullmatch(r"layer_\d+", name):
+            i = int(name[6:])
+            for part, p in sub.items():
+                prefix = f"layers.{i}.{part}"
+                if part in ("attn_norm", "mlp_norm"):
+                    out[f"{prefix}.weight"] = _tensor(
+                        _only(f"{name}/{part}", p, "scale"))
+                elif part in _LLAMA_DENSE:
+                    for dense, kp in p.items():
+                        if dense not in _LLAMA_DENSE[part]:
+                            raise KeyError(f"unknown Llama layer "
+                                           f"{name}/{part}/{dense}")
+                        out[f"{prefix}.{dense}.weight"] = _tensor(np.asarray(
+                            _only(f"{name}/{part}/{dense}", kp,
+                                  "kernel")).T)
+                else:
+                    raise KeyError(f"unknown Llama layer {name}/{part}")
+        else:
+            raise KeyError(f"unknown Llama parameter {name!r}")
     return out
 
 

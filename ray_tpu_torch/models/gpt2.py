@@ -103,10 +103,10 @@ class LayerNorm(nn.Module):
 
 def _dense(layer: nn.Linear, x: torch.Tensor,
            dtype: torch.dtype) -> torch.Tensor:
-    """flax ``nn.Dense(dtype=dtype)``: input, kernel and bias cast to the
-    compute dtype."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype),
-                    layer.bias.to(dtype))
+    """flax ``nn.Dense(dtype=dtype)``: input, kernel and bias (if the
+    layer has one) cast to the compute dtype."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
 class Block(nn.Module):

@@ -31,25 +31,30 @@ LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 
 
 def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = True,
-                  sm_scale: Optional[float] = None) -> torch.Tensor:
+                  causal: bool = True, sm_scale: Optional[float] = None,
+                  use_flash: Optional[bool] = None) -> torch.Tensor:
     """Multi-head attention. q,k,v: [B, L, H, D] -> [B, L, H, D].
 
-    The dispatch conditions are the JAX package's, with "the tensor is on
-    CUDA" in place of "the backend is not the CPU".  The length crossover
-    (lq >= 1024, or a score matrix over 512 MiB) was measured on a TPU and
-    is kept so that the same calls reach the kernel; the H100's own
-    crossover is in PERF.md.  A kernel failure raises: there is no
-    fallback to the plain path."""
+    With ``use_flash=None`` the dispatch conditions are the JAX package's,
+    with "the tensor is on CUDA" in place of "the backend is not the CPU".
+    The length crossover (lq >= 1024, or a score matrix over 512 MiB) was
+    measured on a TPU and is kept so that the same calls reach the
+    kernel; the H100's own crossover is in PERF.md.  ``use_flash=True``
+    always calls ``flash_attention`` (the kernels on CUDA tensors, their
+    plain versions on CPU tensors) and ``False`` always the plain path.
+    A kernel failure raises: unlike the JAX package, there is no fallback
+    to the plain path."""
     b, lq, h, _ = q.shape
     lk = k.shape[1]
     score_bytes = b * h * lq * lk * q.element_size()
-    use_flash = (q.is_cuda
-                 and lq % 128 == 0 and lk % 128 == 0
-                 and (lq >= 1024 or score_bytes > 512 * 1024 * 1024)
-                 # The flash mask is diagonal-aligned; the plain path's is
-                 # bottom-right-aligned for lq != lk (decode).
-                 and (not causal or lq == lk))
+    if use_flash is None:
+        use_flash = (q.is_cuda
+                     and lq % 128 == 0 and lk % 128 == 0
+                     and (lq >= 1024 or score_bytes > 512 * 1024 * 1024)
+                     # The flash mask is diagonal-aligned; the plain
+                     # path's is bottom-right-aligned for lq != lk
+                     # (decode).
+                     and (not causal or lq == lk))
     if use_flash:
         return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
     return _plain_attention(q, k, v, causal, sm_scale)

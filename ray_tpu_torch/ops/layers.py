@@ -1,7 +1,9 @@
 """Elementwise/normalization building blocks (counterpart of
 ``ray_tpu/ops/layers.py``).  Plain PyTorch: these run outside any
-kernel in the JAX package too.  ``rms_norm`` and ``rope`` come with the
-Llama slice."""
+kernel in the JAX package too.  The JAX module's ``rms_norm`` and its
+interleaved-pair ``rope`` have no caller there (its Llama carries its own
+RMSNorm and rotate-half rope, ported in ``models/llama.py``), so they are
+not ported."""
 from __future__ import annotations
 
 import torch

@@ -1,7 +1,8 @@
 """Serving plane of the port (counterpart of ``ray_tpu/serve``): the
 continuous-batching engine with a paged KV cache (speculative decoding,
 the local prefix cache, in-process disaggregated prefill, hot weight
-swaps and rollouts), its naive reference, ``build_model``, seeded
+swaps and rollouts), its naive reference, ``build_model`` (GPT-2 and
+the Llama family), seeded
 sampling, the prefix-cache keys and the prefill worker."""
 from ray_tpu_torch.serve.llm_engine import (  # noqa: F401
     LLMEngine,

@@ -63,8 +63,11 @@ as a ``flow.Stage`` of its runtime).  Not ported yet (see ROADMAP.md), each
 raising where a caller reaches it: the cluster prefix directory and
 prefill through a deployment, an actor or the object plane (Queue 1 item
 1a), ``generate_batch``/``generate_many`` and ``LLMServer`` as a Serve
-deployment (item 1a), ``build_model("llama")`` (item 8).  Metrics export
-and tracing spans (item 9) have no caller here.
+deployment (item 1a).  Metrics export and tracing spans (item 9) have no
+caller here.
+
+The engine serves either model family of ``build_model``: GPT-2, and the
+Llama family, whose pages hold K/V at ``num_kv_heads``.
 """
 from __future__ import annotations
 
@@ -193,8 +196,9 @@ def _scatter_kv(k_pages, v_pages, page_idx, off, newk, newv):
 
 
 def _wpe_rows(positions: torch.Tensor, cfg) -> torch.Tensor:
-    """Positions as rows of ``wpe``: clamped to the table, as JAX clamps
-    an out-of-range gather.  Only lanes whose outputs are discarded reach
+    """Positions as rows of the position tables (GPT-2's ``wpe``, Llama's
+    rope tables): clamped to the table, as JAX clamps an out-of-range
+    gather.  Only lanes whose outputs are discarded reach
     past it (prompt padding, a speculative window at the end of the
     context)."""
     return positions.clamp_max(cfg.max_position_embeddings - 1)
@@ -1434,26 +1438,48 @@ def _lecun_normal_(w: torch.Tensor, gen: torch.Generator):
 def build_model(model_kind: str = "gpt2", config_kw: Optional[dict] = None,
                 seed: int = 0, device=None):
     """A seeded model for a serving replica, on ``device`` (CUDA unless
-    ``device="cpu"``).  The init uses flax's distributions (normal(0.02)
-    for ``wte``, normal(0.01) for ``wpe``, lecun-normal Dense kernels,
-    zero biases) from a CPU ``torch.Generator``, so every device gets the
-    same weights; they are not JAX's values.  ``config_kw`` may hold
-    ``tiny=False`` for the full GPT-2 small shape (default: the tiny
-    preset), plus any ``GPT2Config`` field."""
+    ``device="cpu"``).  ``config_kw`` may hold ``tiny=False`` for the
+    config's own defaults (default: its tiny preset), plus any field of
+    ``GPT2Config`` or ``LlamaConfig``.
+
+    The init draws flax's distributions from a CPU ``torch.Generator``,
+    so every device gets the same weights; they are not JAX's values.
+    GPT-2: normal(0.02) for ``wte``, normal(0.01) for ``wpe``,
+    lecun-normal Dense kernels, zero biases.  Llama (``nn.Embed`` and
+    ``nn.Dense`` defaults): normal(1/sqrt(hidden)) for ``embed``,
+    lecun-normal for every Dense kernel, ones for the RMSNorm scales; the
+    module is made on the meta device and each parameter is drawn on the
+    CPU and copied to ``device`` in turn, so no CPU copy of the whole
+    model is made."""
     device = resolve_device(device)
     config_kw = dict(config_kw or {})
+    tiny = config_kw.pop("tiny", True)
+    gen = torch.Generator().manual_seed(seed)
     if model_kind == "llama":
-        raise NotImplementedError(
-            "build_model('llama') waits for the port of models/llama.py "
-            "(ROADMAP Queue 1 item 8)")
+        from ray_tpu_torch.models import Llama, LlamaConfig
+
+        cfg = LlamaConfig.tiny(**config_kw) if tiny \
+            else LlamaConfig(**config_kw)
+        with torch.device("meta"):
+            model = Llama(cfg)
+        model = model.to_empty(device=device)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                w = torch.empty(p.shape)
+                if name == "embed":
+                    w.normal_(0.0, cfg.hidden_size ** -0.5, generator=gen)
+                elif name.endswith("norm.weight"):
+                    w.fill_(1.0)
+                else:
+                    _lecun_normal_(w, gen)
+                p.copy_(w)
+        return model.eval()
     if model_kind != "gpt2":
         raise ValueError(f"unknown model_kind {model_kind!r}")
     from ray_tpu_torch.models import GPT2, GPT2Config
 
-    cfg = GPT2Config.tiny(**config_kw) if config_kw.pop("tiny", True) \
-        else GPT2Config(**config_kw)
+    cfg = GPT2Config.tiny(**config_kw) if tiny else GPT2Config(**config_kw)
     model = GPT2(cfg)
-    gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         model.wte.normal_(0.0, 0.02, generator=gen)
         model.wpe.normal_(0.0, 0.01, generator=gen)

@@ -23,7 +23,9 @@ from ray_tpu.models import GPT2Config as JConfig
 from ray_tpu.serve import llm_engine as jengine
 from ray_tpu_torch.exceptions import EngineClosedError
 from ray_tpu_torch.models import GPT2, GPT2Config
+from ray_tpu_torch.models import LlamaConfig
 from ray_tpu_torch.models.convert import gpt2_params_from_jax
+from ray_tpu_torch.models.llama import split_stages as llama_split_stages
 from ray_tpu_torch.serve import (
     LLMEngine,
     LLMServer,
@@ -297,7 +299,7 @@ def test_llm_server_swaps_and_returns_rollouts():
     (lambda s: s.generate_batch([[1, 2]]), "Queue 1 item 1a"),
     (lambda s: s.autoscale_metric(), "Queue 1 item 1a"),
     (lambda s: generate_many(None, [[1, 2]]), "Queue 1 item 1a"),
-    (lambda s: build_model("llama", device="cpu"), "Queue 1 item 8"),
+    (lambda s: llama_split_stages(LlamaConfig.tiny(), 2), "Queue 1 item 8"),
 ], ids=["swap_object_ref", "generate_batch", "autoscale_metric",
         "generate_many", "llama"])
 def test_left_out_entry_points_raise_naming_their_item(call, match):
