@@ -24,6 +24,21 @@ three main paths with random weights from a seed:
   prefill, the int8 wire >= 3x smaller) and hot weight swaps with
   rollouts (``[swap]``: every token's version stamp and logprob against a
   full-context forward of the version that stamped it);
+- the task/actor/object runtime, ``ray_tpu_torch.init(num_cpus=4)`` on
+  this machine with the card as its one GPU, its workers subprocesses:
+  ``[runtime]`` (a task without GPUs sees ``CUDA_VISIBLE_DEVICES=""``
+  and cannot resolve CUDA; a ``num_gpus=1`` actor sees the card; a second
+  one waits until the first is killed; GPT-2 small's bf16 state dict goes
+  from the GPU actor to the driver bit for bit, with its put and get
+  rates), ``[disagg-actor]`` (``bench_serving_disagg``'s two legs at
+  GPT-2 small fp32, the ``PrefillWorker`` a GPU actor beside the driver's
+  engine, the object plane off and on: tokens equal to the colocated
+  leg's and to ``[disagg]``'s in-process native leg, occupancy, TTFT and
+  tokens/s as readings), ``[swap-ref]`` (``swap_weights`` of a ref to a
+  state dict a GPU actor put: the greedy tokens of an engine built with
+  those weights) and ``[actor-train]`` (``[train]``'s B=16 S=1024 steps
+  in a GPU actor: the kernels the driver built, 12 launches of each a
+  step in the worker, the losses bit for bit ``[train]``'s);
 - training: GPT-2 small steps (bf16 compute over fp32 parameters,
   ``adamw(3e-4)``, ``make_train_step``) at the JAX bench's two shapes,
   B=16 x S=1024 and B=4 x S=4096, every layer running the forward with
@@ -81,14 +96,17 @@ import copy
 import dataclasses
 import itertools
 import json
+import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+import ray_tpu_torch
 from ray_tpu_torch.models import (
     Llama,
     LlamaConfig,
@@ -972,10 +990,12 @@ def disagg_leg(model, first, rest, worker=None, prefix_cache=True):
     return outs, st, seconds
 
 
-def phase_disagg(card, model) -> dict:
+def phase_disagg(card, model) -> tuple:
     """In-process disaggregated prefill on the card, fp32: the native
     wire token-identical to inline prefill, the worker fed only uncached
-    tails; the int8 wire >= 3x smaller than fp32, no page leaked."""
+    tails; the int8 wire >= 3x smaller than fp32, no page leaked.
+    Returns the launches, and the prompts with the native leg's tokens
+    (``[disagg-actor]`` holds its actor to them)."""
     rng = np.random.default_rng(2)
     vocab = model.config.vocab_size
     shared = [int(t) for t in rng.integers(0, vocab, size=DISAGG_SHARED)]
@@ -1034,7 +1054,7 @@ def phase_disagg(card, model) -> dict:
     log(f"[disagg] native wire token-identical to inline prefill; the "
         f"worker saw only uncached tails ({want_tokens} tokens); no page "
         f"leaked")
-    return {"disagg": launches}
+    return {"disagg": launches}, (first, rest, native)
 
 
 class VersionedCache(PrefixCacheLocal):
@@ -1142,69 +1162,514 @@ def phase_swap(card, model) -> dict:
     return {"swap": launches}
 
 
+# ---------------------------------------------------------------------------
+# The task/actor/object runtime with GPU workers: [runtime], [disagg-actor],
+# [swap-ref], [actor-train]
+# ---------------------------------------------------------------------------
+RUNTIME_CPUS = 4
+GET_S = 600  # seconds: the bound of every get of these phases
+PLACE_WAIT_S = 5.0  # how long a second GPU actor is watched not to start
+# [disagg-actor]: bench_serving_disagg (bench.py:818-966) at GPT-2 small
+# fp32: 8 short users (12-token prompts, 24 new tokens) arriving 0.5 s
+# behind a burst of 14 long prompts (440-488 tokens, 8 new), greedy; 16
+# slots, pages of 16, max_ctx 512, prefill_min_tokens 64, chunk_tokens 1;
+# occupancy sampled every 20 ms of wall time.
+BENCH_SHORTS, BENCH_LONGS, BENCH_SHORT_LEN = 8, 14, 12
+BENCH_LONG_LENS, BENCH_SHORT_NEW, BENCH_LONG_NEW = (440, 489), 24, 8
+BENCH_ENGINE = {"max_slots": 16, "page_size": 16, "max_ctx": 512,
+                "prefill_min_tokens": 64, "chunk_tokens": 1}
+# [swap-ref]: 4 greedy requests of 16 tokens before and after a swap to a
+# state dict of another seed, put by a GPU actor.
+SWAP_REF_SEED, SWAP_REF_PROMPTS, SWAP_REF_NEW = SEED + 7, 4, 16
+# [actor-train]: [train]'s first shape in a num_gpus=1 actor.  The losses
+# must equal [train]'s bit for bit: same seed, ids, kernels (the bf16 dq
+# is deterministic) and cuBLAS on the same card.
+ACTOR_LOSS_ATOL = 0.0
+
+
+def jax_modules() -> list:
+    return sorted(m for m in sys.modules
+                  if m in ("jax", "ray_tpu") or m.startswith("ray_tpu."))
+
+
+def cpu_task_view() -> tuple:
+    """Run as a task without GPUs: what it sees of the card."""
+    try:
+        ray_tpu_torch.resolve_device()
+        err = None
+    except RuntimeError as e:
+        err = str(e)
+    return os.environ.get("CUDA_VISIBLE_DEVICES"), err, jax_modules()
+
+
+class GPUActor:
+    """A ``num_gpus=1`` actor: what its worker sees, and a GPT-2 small
+    state dict put from its card."""
+
+    def seen(self) -> dict:
+        return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "name": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count(), "jax": jax_modules()}
+
+    def put_state(self, config_kw, seed, dtype=None) -> tuple:
+        """The state dict of build_model(config_kw, seed) (cast to
+        ``dtype`` if given), its tensors on the card, put by this worker:
+        ([ref], seconds of the put)."""
+        state = model_state(config_kw, seed, dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = ray_tpu_torch.put(state)
+        return [ref], time.perf_counter() - t0
+
+
+class TrainActor:
+    """A ``num_gpus=1`` actor that runs ``train_steps`` with [train]'s
+    settings (TF32 off for matmuls; GPT-2 runs no convolution) on the
+    kernels the driver built.  It sets the precision through
+    ``set_float32_matmul_precision`` ("highest" is ``allow_tf32 =
+    False``): cloudpickle ships this class by value when the script is
+    ``__main__``, and cannot pickle the module objects of
+    ``torch.backends`` that a method naming them would carry."""
+
+    def __init__(self):
+        torch.set_float32_matmul_precision("highest")
+
+    def setup(self) -> dict:
+        for name in _build.SIGNATURES:
+            _build.load(name)
+        with open("/proc/self/maps") as maps:
+            libs = sorted({line.split()[-1] for line in maps
+                           if "/_build/lib" in line})
+        return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "libs": libs, "cudart": cudart_libs(),
+                "jax": jax_modules()}
+
+    def train(self, b, length, iters) -> dict:
+        return train_steps(b, length, iters)
+
+
+def model_state(config_kw, seed, dtype=None) -> dict:
+    """GPT-2's state dict (fp32 parameters, as flax keeps them), on the
+    card, cast to ``dtype`` if given."""
+    state = build_model("gpt2", config_kw, seed=seed).state_dict()
+    return {k: t if dtype is None else t.to(dtype) for k, t in state.items()}
+
+
+def state_bytes(state) -> int:
+    return sum(t.numel() * t.element_size() for t in state.values())
+
+
+def same_bits(a, b) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def phase_runtime(card) -> None:
+    """The runtime on this machine: the card is its one GPU; a task
+    without GPUs sees none and cannot resolve CUDA; a GPU actor sees the
+    card; a second waits until the first is killed; GPT-2 small's bf16
+    state dict comes from the GPU actor to the driver bit for bit."""
+    from ray_tpu_torch._native import available as native_built
+    from ray_tpu_torch._private.config import CONFIG
+
+    get = ray_tpu_torch.get
+    res = ray_tpu_torch.cluster_resources()
+    if res.get("GPU") != 1.0 or res.get("CPU") != RUNTIME_CPUS:
+        raise AssertionError(f"[runtime] cluster resources {res}")
+    visible, err, jax = get(ray_tpu_torch.remote(cpu_task_view).remote(),
+                            timeout=GET_S)
+    if visible != "" or err is None or jax:
+        raise AssertionError(f"[runtime] a task without GPUs saw "
+                             f"CUDA_VISIBLE_DEVICES={visible!r}, "
+                             f"resolve_device() error {err!r}, {jax}")
+    actor_cls = ray_tpu_torch.remote(num_gpus=1)(GPUActor)
+    name = card.split(",")[0].strip()
+    t0 = time.perf_counter()
+    first = actor_cls.remote()
+    seen = get(first.seen.remote(), timeout=GET_S)
+    cold_s = time.perf_counter() - t0
+    want = {"visible": "0", "name": name, "count": 1, "jax": []}
+    if seen != want:
+        raise AssertionError(f"[runtime] the GPU actor saw {seen}, "
+                             f"expected {want}")
+    second = actor_cls.remote()
+    pending = second.seen.remote()
+    ready, _ = ray_tpu_torch.wait([pending], timeout=PLACE_WAIT_S)
+    if ready:
+        raise AssertionError("[runtime] a second num_gpus=1 actor started "
+                             "while the first held the card")
+    t0 = time.perf_counter()
+    ray_tpu_torch.kill(first)
+    seen2 = get(pending, timeout=GET_S)
+    handover_s = time.perf_counter() - t0
+    if seen2 != want:
+        raise AssertionError(f"[runtime] the second GPU actor saw {seen2}")
+    (ref,), put_s = get(second.put_state.remote(
+        GPT2_SMALL_FP32, SEED, torch.bfloat16), timeout=GET_S)
+    t0 = time.perf_counter()
+    got = get(ref, timeout=GET_S)
+    get_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_card = {k: t.to("cuda") for k, t in got.items()}
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    ray_tpu_torch.kill(second)
+    want_state = model_state(GPT2_SMALL_FP32, SEED, torch.bfloat16)
+    nbytes = state_bytes(got)
+    wrong = [k for k in want_state
+             if got[k].device.type != "cpu"
+             or not same_bits(got[k], want_state[k].cpu())]
+    if set(got) != set(want_state) or wrong:
+        raise AssertionError(f"[runtime] the state dict differs: {wrong}")
+    store = ("the native arena" if CONFIG.native_store
+             else "per-object shared-memory segments (Python)")
+    log(f"[runtime] {card} | init(num_cpus={RUNTIME_CPUS}): {res}; a task "
+        f"without GPUs sees CUDA_VISIBLE_DEVICES='' and resolve_device() "
+        f"raises; a num_gpus=1 actor sees '0' = {seen['name']}, its cold "
+        f"start (spawn, imports, CUDA context) {cold_s:.2f} s; a second "
+        f"waited {PLACE_WAIT_S:.0f} s unplaced and started "
+        f"{handover_s:.2f} s after the first was killed; no module of the "
+        f"JAX package in either worker")
+    log(f"[runtime] {card} | GPT-2 small bf16 state dict, {len(got)} "
+        f"tensors, {nbytes} bytes, from the GPU actor: put {put_s:.3f} s "
+        f"({nbytes / put_s / 1e9:.2f} GB/s, card to host included), get "
+        f"{get_s:.4f} s ({nbytes / get_s / 1e9:.2f} GB/s, zero-copy), to "
+        f"the driver's card {h2d_s:.3f} s ({nbytes / h2d_s / 1e9:.2f} "
+        f"GB/s); bitwise equal to the driver's build; store: {store} "
+        f"(native arena built: {native_built()})")
+    del got, on_card, want_state
+    torch.cuda.empty_cache()
+
+
+def bench_disagg_leg(model, shorts, longs, worker=None) -> tuple:
+    """One leg of bench_serving_disagg (bench.py:858-956): warm both
+    sides, then the long burst with the short users 0.5 s behind it.
+    Returns (tokens of every request, readings, stats)."""
+    eng = LLMEngine(model, prefill=worker, **BENCH_ENGINE)
+    try:
+        eng.result(eng.submit(shorts[0], 2), timeout=GET_S)
+        eng.result(eng.submit(longs[0], 2), timeout=GET_S)
+        occ, stop = [], threading.Event()
+
+        def sampler():
+            while not stop.is_set():
+                occ.append(int(eng._active.sum()))
+                time.sleep(0.02)
+
+        ttft, lat, short_out, long_rids = [], [], {}, []
+        lock = threading.Lock()
+
+        def short_user(i):
+            time.sleep(0.5)
+            t = time.perf_counter()
+            rid = eng.submit(shorts[i], BENCH_SHORT_NEW)
+            first, toks = None, []
+            for chunk in eng.stream(rid, timeout=GET_S):
+                if first is None:
+                    first = time.perf_counter() - t
+                toks += chunk
+            with lock:
+                ttft.append(first)
+                lat.append(time.perf_counter() - t)
+                short_out[i] = toks
+
+        def long_feeder():
+            for prompt in longs:
+                long_rids.append(eng.submit(prompt, BENCH_LONG_NEW))
+
+        threading.Thread(target=sampler, daemon=True).start()
+        threads = [threading.Thread(target=short_user, args=(i,))
+                   for i in range(len(shorts))]
+        threads.append(threading.Thread(target=long_feeder))
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        long_out = [eng.result(r, timeout=GET_S) for r in long_rids]
+        deadline = time.time() + GET_S
+        while eng.stats()["pages_in_use"] and time.time() < deadline:
+            time.sleep(0.05)
+        seconds = time.perf_counter() - t0
+        stop.set()
+        st = eng.stats()
+    finally:
+        eng.close()
+    ttft.sort()
+    lat.sort()
+    readings = {
+        "occupancy": sum(occ) / max(1, len(occ)) / BENCH_ENGINE["max_slots"],
+        "ttft_p50_ms": ttft[len(ttft) // 2] * 1e3,
+        "ttft_p99_ms": ttft[-1] * 1e3, "p50_ms": lat[len(lat) // 2] * 1e3,
+        "p99_ms": lat[-1] * 1e3,
+        "tokens_per_s": st["tokens_generated"] / seconds,
+        "steps_per_s": st["steps"] / seconds,
+        "offloaded": st["prefill_offloaded"]}
+    return [short_out[i] for i in range(len(shorts))] + long_out, \
+        readings, st
+
+
+def phase_disagg_actor(card, model, disagg_native) -> dict:
+    """bench_serving_disagg's two legs at GPT-2 small fp32, the engine in
+    the driver and the PrefillWorker a num_gpus=1 actor on the same card:
+    colocated (inline prefill), then the actor with the native wire, with
+    the object plane off and on.  Each actor leg's tokens equal the
+    colocated leg's, and on [disagg]'s prompts the in-process native
+    leg's; no page leaks."""
+    first, rest, native = disagg_native
+    rng = np.random.default_rng(0)
+    vocab = model.config.vocab_size
+    shorts = [[int(t) for t in rng.integers(0, vocab, size=BENCH_SHORT_LEN)]
+              for _ in range(BENCH_SHORTS)]
+    longs = [[int(t) for t in rng.integers(0, vocab, size=int(n))]
+             for n in rng.integers(*BENCH_LONG_LENS, size=BENCH_LONGS)]
+    zero_launches()
+    colocated, co, co_st = bench_disagg_leg(model, shorts, longs)
+    legs = {"colocated": co}
+    actor_cls = ray_tpu_torch.remote(num_gpus=1)(PrefillWorker)
+    for plane in (False, True):
+        tag = f"actor, object plane {'on' if plane else 'off'}"
+        t0 = time.perf_counter()
+        worker = actor_cls.remote("gpt2", GPT2_SMALL_FP32, SEED,
+                                  page_size=BENCH_ENGINE["page_size"],
+                                  use_object_plane=plane)
+        warm = ray_tpu_torch.get(worker.prefill.remote(longs[0], 0),
+                                 timeout=GET_S)
+        cold_s = time.perf_counter() - t0
+        if ("refs" in warm) != plane:
+            raise AssertionError(f"[disagg-actor] {tag}: payload keys "
+                                 f"{sorted(warm)}")
+        toks, legs[tag], st = bench_disagg_leg(model, shorts, longs, worker)
+        outs, dst, _ = disagg_leg(model, first, rest, worker)
+        wst = ray_tpu_torch.get(worker.stats.remote(), timeout=GET_S)
+        ray_tpu_torch.kill(worker)
+        legs[tag]["cold_s"] = cold_s
+        legs[tag]["worker_ms"] = wst["seconds"] / wst["requests"] * 1e3
+        if toks != colocated:
+            diff = [i for i, (a, b) in enumerate(zip(toks, colocated))
+                    if a != b]
+            raise AssertionError(f"[disagg-actor] {tag}: requests {diff} "
+                                 f"differ from the colocated leg")
+        if outs != native:
+            raise AssertionError(f"[disagg-actor] {tag}: [disagg]'s "
+                                 f"prompts give {outs}, the in-process "
+                                 f"native leg {native}")
+        if st["prefill_offloaded"] < BENCH_LONGS or \
+                dst["prefill_offloaded"] != 1 + len(rest):
+            raise AssertionError(f"[disagg-actor] {tag}: offloaded "
+                                 f"{st['prefill_offloaded']}, "
+                                 f"{dst['prefill_offloaded']}")
+        for s in (st, dst):
+            if s["pages_in_use"] or s["prefill_inflight"]:
+                raise AssertionError(f"[disagg-actor] {tag}: leaked {s}")
+    if co_st["pages_in_use"]:
+        raise AssertionError(f"[disagg-actor] colocated leaked {co_st}")
+    launches = dict(attn.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"[disagg-actor] the engine launched "
+                             f"{launches}")
+    for tag, r in legs.items():
+        extra = (f", actor cold start {r['cold_s']:.2f} s, "
+                 f"{r['worker_ms']:.1f} ms a prefill in the actor"
+                 if "cold_s" in r else "")
+        log(f"[disagg-actor] {card} | {tag}: occupancy "
+            f"{r['occupancy']:.3f}, short TTFT p50 {r['ttft_p50_ms']:.1f} "
+            f"ms p99 {r['ttft_p99_ms']:.1f} ms, short latency p50 "
+            f"{r['p50_ms']:.1f} ms p99 {r['p99_ms']:.1f} ms, "
+            f"{r['tokens_per_s']:.1f} tokens/s, {r['steps_per_s']:.1f} "
+            f"steps/s, {r['offloaded']} offloaded{extra}")
+    log(f"[disagg-actor] GPT-2 small fp32, {BENCH_SHORTS} short + "
+        f"{BENCH_LONGS} long requests, greedy: both actor legs "
+        f"token-identical to the colocated leg, and on [disagg]'s prompts "
+        f"to its in-process native leg; no page leaked; flash launches "
+        f"{launches}")
+    return {"disagg-actor": launches}
+
+
+def phase_swap_ref(card, model) -> dict:
+    """swap_weights(ref): a GPU actor puts the state dict of another seed;
+    the engine in the driver swaps to the ref, and its greedy tokens then
+    equal those of an engine built with that seed."""
+    rng = np.random.default_rng(4)
+    vocab = model.config.vocab_size
+    prompts = [[int(t) for t in rng.integers(0, vocab, size=int(n))]
+               for n in rng.integers(64, 201, size=SWAP_REF_PROMPTS)]
+    kw = {"max_slots": SWAP_REF_PROMPTS, "page_size": 16, "max_ctx": 1024}
+    publisher = ray_tpu_torch.remote(num_gpus=1)(GPUActor).remote()
+    (ref,), put_s = ray_tpu_torch.get(
+        publisher.put_state.remote(GPT2_SMALL_FP32, SWAP_REF_SEED),
+        timeout=GET_S)
+
+    def greedy(eng):
+        rids = [eng.submit(p, SWAP_REF_NEW) for p in prompts]
+        return [eng.result(r, timeout=GET_S) for r in rids]
+
+    zero_launches()
+    eng = LLMEngine(copy.deepcopy(model), **kw)
+    try:
+        before = greedy(eng)
+        eng.swap_weights(ref, 1, timeout=GET_S)
+        after = greedy(eng)
+        st = eng.stats()
+    finally:
+        eng.close()
+    ray_tpu_torch.kill(publisher)
+    fresh = LLMEngine(build_model("gpt2", GPT2_SMALL_FP32,
+                                  seed=SWAP_REF_SEED), **kw)
+    try:
+        want = greedy(fresh)
+    finally:
+        fresh.close()
+    launches = dict(attn.LAUNCHES)
+    torch.cuda.empty_cache()
+    log(f"[swap-ref] {card} | GPT-2 small fp32 state dict of seed "
+        f"{SWAP_REF_SEED} put by a GPU actor in {put_s:.3f} s; "
+        f"swap_weights(ref) applied in {st['swap_latency_s_avg'] * 1e3:.1f} "
+        f"ms (the get and the copy to the card included); {len(prompts)} "
+        f"greedy requests of {SWAP_REF_NEW} tokens; flash launches "
+        f"{launches}")
+    if after != want:
+        raise AssertionError(f"[swap-ref] tokens after the swap {after} != "
+                             f"an engine built with seed {SWAP_REF_SEED}: "
+                             f"{want}")
+    if after == before:
+        raise AssertionError("[swap-ref] the swap changed no token")
+    if st["swaps"] != 1 or st["weight_version"] != 1 or st["pages_in_use"]:
+        raise AssertionError(f"[swap-ref] stats {st}")
+    if any(launches.values()):
+        raise AssertionError(f"[swap-ref] the engine launched {launches}")
+    log("[swap-ref] greedy tokens after swap_weights(ref) equal an engine "
+        "built with those weights")
+    return {"swap-ref": launches}
+
+
+def phase_actor_train(card, train) -> dict:
+    """[train]'s first shape in a num_gpus=1 actor: the worker loads the
+    kernels the driver built, launches each 12 times a step, and its
+    losses equal the in-process ones.  Returns its launches."""
+    b, length, iters = TRAIN_SHAPES[0]
+    tag = f"B={b} S={length}"
+    t0 = time.perf_counter()
+    actor = ray_tpu_torch.remote(num_gpus=1)(TrainActor).remote()
+    setup = ray_tpu_torch.get(actor.setup.remote(), timeout=GET_S)
+    cold_s = time.perf_counter() - t0
+    run = ray_tpu_torch.get(actor.train.remote(b, length, iters),
+                            timeout=GET_S)
+    ray_tpu_torch.kill(actor)
+    build_dir = str(_build.BUILD_DIR)
+    if setup["visible"] != "0" or setup["jax"] or len(setup["libs"]) != \
+            len(_build.SIGNATURES) or not all(
+                lib.startswith(build_dir) for lib in setup["libs"]) or \
+            len(setup["cudart"]) != 1:
+        raise AssertionError(f"[actor-train] worker setup {setup}")
+    tokens_per_s, mfu, _ = check_train(f"[actor-train] {tag}", run, b,
+                                       length, iters)
+    local = train[tag]
+    diff = max(abs(x - y) for x, y in zip(run["losses"], local["losses"]))
+    log(f"[actor-train] {card} | GPT-2 small {tag} in a num_gpus=1 actor "
+        f"(cold start {cold_s:.2f} s; kernels {setup['libs']}): "
+        f"{run['seconds'] / iters * 1e3:.1f} ms/step in the actor against "
+        f"{local['seconds'] / iters * 1e3:.1f} in the process, "
+        f"{tokens_per_s:.0f} tokens/s, MFU {mfu:.4f}; loss "
+        f"{' '.join(f'{x:.4f}' for x in run['losses'])}; max |loss - "
+        f"[train]'s| {diff:.3g} (bitwise {run['losses'] == local['losses']}"
+        f", bound {ACTOR_LOSS_ATOL}); launches {run['launches']}; peak "
+        f"memory {run['peak_gib']:.1f} GiB")
+    if not diff <= ACTOR_LOSS_ATOL:
+        raise AssertionError(f"[actor-train] losses {run['losses']} vs "
+                             f"[train]'s {local['losses']}")
+    return {f"actor-train {tag}": run["launches"]}
+
+
+def train_steps(b, length, iters, seed=SEED) -> dict:
+    """GPT-2 small steps at B x S: bf16 compute over fp32 parameters,
+    adamw(3e-4), the same seeded ids every step (bench.py's synthetic
+    branch).  One warm-up step, then ``iters`` steps ended by one device
+    read of the last loss (bench.py:143-148).  The counts are zeroed just
+    before each window and read just after it.  ``[train]`` runs this in
+    the process, ``[actor-train]`` in a GPU actor."""
+    model = build_model("gpt2", {"tiny": False,
+                                 "max_position_embeddings": max(1024, length)},
+                        seed=seed)
+    cfg = model.config
+    step = make_train_step(model, adamw(model.parameters(), 3e-4),
+                           gpt2_loss_fn)
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(b, length))).to("cuda")
+    batch = {"input_ids": ids}
+    zero_launches()
+    first = step(batch).item()
+    warm = dict(attn.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    losses = [step(batch) for _ in range(iters)]
+    losses[-1].item()  # the one device read: the barrier
+    seconds = time.perf_counter() - t0
+    timed = dict(attn.LAUNCHES)
+    out = {"losses": [first] + torch.stack(losses).tolist(),
+           "seconds": seconds, "warm_launches": warm, "launches": timed,
+           "n_params": sum(p.numel() for p in model.parameters()),
+           "num_layers": cfg.num_layers, "hidden_size": cfg.hidden_size,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del model, step, losses
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_train(tag, run, b, length, iters) -> tuple:
+    """Hold one ``train_steps`` run to the path's rules: 12 launches of
+    each kernel a step, finite losses, the first near ln 50257, a falling
+    loss.  Returns (tokens/s, MFU, FLOPs a token)."""
+    per_step = {name: run["num_layers"] for name in attn.LAUNCHES}
+    if run["warm_launches"] != per_step:
+        raise AssertionError(f"{tag} warm-up step launched "
+                             f"{run['warm_launches']}, expected {per_step}")
+    want = {name: n * iters for name, n in per_step.items()}
+    if run["launches"] != want:
+        raise AssertionError(f"{tag}: {iters} steps launched "
+                             f"{run['launches']}, expected {want}")
+    losses = run["losses"]
+    first, last = losses[0], losses[-1]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: losses {losses}")
+    if abs(first - LN_VOCAB) > FIRST_LOSS_SLACK:
+        raise AssertionError(f"{tag}: first loss {first:.4f} not within "
+                             f"{FIRST_LOSS_SLACK} of ln 50257 = "
+                             f"{LN_VOCAB:.4f}")
+    if not last < first:
+        raise AssertionError(f"{tag}: loss did not fall ({first:.4f} -> "
+                             f"{last:.4f})")
+    flops_per_token = (6 * run["n_params"] + 12 * run["num_layers"]
+                       * run["hidden_size"] * length)
+    tokens_per_s = iters * b * length / run["seconds"]
+    mfu = tokens_per_s * flops_per_token / PEAK_OPS_PER_S[torch.bfloat16]
+    return tokens_per_s, mfu, flops_per_token
+
+
 def phase_train(card) -> dict:
-    """GPT-2 small training steps at the JAX bench's two shapes: bf16
-    compute over fp32 parameters, adamw(3e-4), the same seeded ids every
-    step (bench.py's synthetic branch).  One warm-up step, then timed
-    steps ended by one device read of the last loss (bench.py:143-148).
-    Returns the launches of each kernel in the timed windows."""
-    launches = {}
+    """GPT-2 small training steps at the JAX bench's two shapes
+    (``train_steps``).  Returns each shape's run: its losses, time and the
+    launches of each kernel in the timed window."""
+    runs = {}
     routes = {name: r["bfloat16"] for name, r in routes_by_dtype().items()}
     for b, length, iters in TRAIN_SHAPES:
         tag = f"B={b} S={length}"
-        model = build_model("gpt2", {"tiny": False,
-                                     "max_position_embeddings":
-                                         max(1024, length)}, seed=SEED)
-        cfg = model.config
-        step = make_train_step(model, adamw(model.parameters(), 3e-4),
-                               gpt2_loss_fn)
-        ids = torch.from_numpy(np.random.default_rng(SEED).integers(
-            0, cfg.vocab_size, size=(b, length))).to("cuda")
-        batch = {"input_ids": ids}
-        per_step = {name: cfg.num_layers for name in attn.LAUNCHES}
-        zero_launches()
-        first = step(batch).item()
-        if attn.LAUNCHES != per_step:
-            raise AssertionError(f"[train] {tag} warm-up step launched "
-                                 f"{attn.LAUNCHES}, expected {per_step}")
-        torch.cuda.reset_peak_memory_stats()
-        zero_launches()
-        t0 = time.perf_counter()
-        losses = [step(batch) for _ in range(iters)]
-        last = losses[-1].item()  # the one device read: the barrier
-        seconds = time.perf_counter() - t0
-        counted = dict(attn.LAUNCHES)
-        launches[tag] = counted
-        want = {name: n * iters for name, n in per_step.items()}
-        if counted != want:
-            raise AssertionError(f"[train] {tag}: {iters} steps launched "
-                                 f"{counted}, expected {want}")
-        losses = [first] + torch.stack(losses).tolist()
-        if not all(np.isfinite(losses)):
-            raise AssertionError(f"[train] {tag}: losses {losses}")
-        if abs(first - LN_VOCAB) > FIRST_LOSS_SLACK:
-            raise AssertionError(f"[train] {tag}: first loss {first:.4f} "
-                                 f"not within {FIRST_LOSS_SLACK} of ln "
-                                 f"50257 = {LN_VOCAB:.4f}")
-        if not last < first:
-            raise AssertionError(f"[train] {tag}: loss did not fall "
-                                 f"({first:.4f} -> {last:.4f})")
-        n_params = sum(p.numel() for p in model.parameters())
-        flops_per_token = (6 * n_params + 12 * cfg.num_layers
-                           * cfg.hidden_size * length)
-        tokens_per_s = iters * b * length / seconds
-        mfu = tokens_per_s * flops_per_token / PEAK_OPS_PER_S[torch.bfloat16]
+        run = train_steps(b, length, iters)
+        tokens_per_s, mfu, flops_per_token = check_train(
+            f"[train] {tag}", run, b, length, iters)
+        per_step = {name: run["num_layers"] for name in attn.LAUNCHES}
         log(f"[train] {card} | GPT-2 small {tag} bf16/fp32-params adamw: "
-            f"{iters} steps in {seconds:.3f} s = "
-            f"{seconds / iters * 1e3:.1f} ms/step, {tokens_per_s:.0f} "
-            f"tokens/s, MFU {mfu:.4f} (N={n_params}, "
-            f"{flops_per_token / 1e9:.3f} GFLOP/token, bf16 peak); loss "
-            f"{' '.join(f'{x:.4f}' for x in losses)}; launches per step "
-            f"{per_step}, bf16 routes {routes}; peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-        del model, step, losses
-        torch.cuda.empty_cache()
-    return launches
+            f"{iters} steps in {run['seconds']:.3f} s = "
+            f"{run['seconds'] / iters * 1e3:.1f} ms/step, "
+            f"{tokens_per_s:.0f} tokens/s, MFU {mfu:.4f} "
+            f"(N={run['n_params']}, {flops_per_token / 1e9:.3f} GFLOP/token, "
+            f"bf16 peak); loss "
+            f"{' '.join(f'{x:.4f}' for x in run['losses'])}; launches per "
+            f"step {per_step}, bf16 routes {routes}; peak memory "
+            f"{run['peak_gib']:.1f} GiB")
+        runs[tag] = run
+    return runs
 
 
 def phase_train_fp32(tag="train-fp32", kind="gpt2",
@@ -2285,13 +2750,34 @@ def main():
     phase_bf16_slice()
     serve_model = build_model("gpt2", GPT2_SMALL_FP32, seed=SEED)
     serving = {}
-    for phase in (phase_spec, phase_prefix, phase_disagg, phase_swap):
+
+    def timed(phase, *args):
         t_phase = time.perf_counter()
-        serving.update(phase(card, serve_model))
-        log(f"[{phase.__name__[6:]}] {time.perf_counter() - t_phase:.1f} s")
-    del serve_model
-    torch.cuda.empty_cache()
-    train_launches = phase_train(card)
+        out = phase(card, *args)
+        log(f"[{phase.__name__[6:].replace('_', '-')}] "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        return out
+
+    serving.update(timed(phase_spec, serve_model))
+    serving.update(timed(phase_prefix, serve_model))
+    launches, disagg_native = timed(phase_disagg, serve_model)
+    serving.update(launches)
+    # The runtime's phases share one cluster on this machine (its workers
+    # are subprocesses), up from [runtime] to [actor-train], which needs
+    # [train]'s losses; [swap] runs after [swap-ref] because it perturbs
+    # the serving model's weights.
+    ray_tpu_torch.init(num_cpus=RUNTIME_CPUS)
+    try:
+        timed(phase_runtime)
+        serving.update(timed(phase_disagg_actor, serve_model, disagg_native))
+        serving.update(timed(phase_swap_ref, serve_model))
+        serving.update(timed(phase_swap, serve_model))
+        del serve_model
+        torch.cuda.empty_cache()
+        train = phase_train(card)
+        actor_train = timed(phase_actor_train, train)
+    finally:
+        ray_tpu_torch.shutdown()
     phase_train_fp32()
     t_phase = time.perf_counter()
     llama, model = phase_llama_serve(card)
@@ -2322,7 +2808,9 @@ def main():
     rl.update({f"ppo-{kind}": n for kind, n in phase_memory(card).items()})
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     by_path = {"serve": {"flash_fwd": serve_launches}, **serving,
-               **{f"train {tag}": n for tag, n in train_launches.items()},
+               **{f"train {tag}": run["launches"]
+                  for tag, run in train.items()},
+               **actor_train,
                **llama, "ppo": ppo["flash"], **rl}
     # dq's and dkv's top-level fields are those of the first training
     # shape; the forward's are the serving shape's.

@@ -60,11 +60,13 @@
 
 The loop is a worker thread owned by the engine (the JAX package runs it
 as a ``flow.Stage`` of its runtime).  Not ported yet (see ROADMAP.md), each
-raising where a caller reaches it: the cluster prefix directory and
-prefill through a deployment, an actor or the object plane (Queue 1 item
-1a), ``generate_batch``/``generate_many`` and ``LLMServer`` as a Serve
-deployment (item 1a).  Metrics export and tracing spans (item 9) have no
-caller here.
+raising where a caller reaches it: the cluster prefix directory (what is
+left of Queue 1 item 1a), prefill through a Serve deployment,
+``generate_batch``/``generate_many`` and ``LLMServer`` as a Serve
+deployment (item 9).  Prefill through a ``PrefillWorker`` actor and the
+object plane, and ``swap_weights`` of an ``ObjectRef``, run on the
+port's runtime.  Metrics export and tracing spans (item 9) have no caller
+here.
 
 The engine serves either model family of ``build_model``: GPT-2, and the
 Llama family, whose pages hold K/V at ``num_kv_heads``.
@@ -92,8 +94,16 @@ from ray_tpu_torch.serve.sampling import (
     sample_tokens_with_logprobs,
 )
 
-_RUNTIME = ("needs the task/actor runtime, not ported yet (ROADMAP Queue 1 "
-            "item 1a)")
+_DIRECTORY = ("is not ported yet: it is left of ROADMAP Queue 1 item 1a, "
+              "with multi-host and client mode")
+_SERVE = ("needs the Serve control plane, not ported yet (ROADMAP Queue 1 "
+          "item 9)")
+
+
+def _is_object_ref(value) -> bool:
+    from ray_tpu_torch.object_ref import ObjectRef
+
+    return isinstance(value, ObjectRef)
 
 
 class PagePool:
@@ -334,7 +344,7 @@ class LLMEngine:
         # ---- prefix cache (the local tier) ----
         if prefix_directory is not None:
             raise NotImplementedError(
-                f"prefix_directory (the cluster prefix cache) {_RUNTIME}")
+                f"prefix_directory (the cluster prefix cache) {_DIRECTORY}")
         if prefix_cache is True:
             prefix_cache = pc.PrefixCacheLocal(256 * 1024 * 1024)
         self._prefix = prefix_cache or None
@@ -458,12 +468,13 @@ class LLMEngine:
             raise req.error
         return list(req.out)
 
-    def swap_weights(self, params: Mapping[str, Any], version: int,
+    def swap_weights(self, params, version: int,
                      timeout: Optional[float] = 60.0) -> int:
-        """Install new weights (a ``state_dict`` of the serving model) at
-        the next token boundary: one host-to-device copy per version, no
-        in-flight request dropped.  Active slots are recycled through
-        recompute preemption, so their KV is rebuilt under the new
+        """Install new weights (a ``state_dict`` of the serving model, or
+        an ``ObjectRef`` to one: the one-put weight broadcast, resolved by
+        the loop) at the next token boundary: one host-to-device copy per
+        version, no in-flight request dropped.  Active slots are recycled
+        through recompute preemption, so their KV is rebuilt under the new
         weights; their emitted tokens, logprobs and stamps stay, and every
         later token is sampled under, and stamped with, ``version``.  The
         prefix-cache namespace re-derives with the version, so pre-swap
@@ -475,11 +486,10 @@ class LLMEngine:
         shapes or dtypes differ from the model's stops the engine
         (``EngineClosedError`` here, ``ValueError`` on its requests).
         Returns the installed version."""
-        if not isinstance(params, Mapping):
-            raise NotImplementedError(
-                f"swap_weights takes a state_dict; a "
-                f"{type(params).__name__} (an object-plane weight "
-                f"broadcast) {_RUNTIME}")
+        if not isinstance(params, Mapping) and not _is_object_ref(params):
+            raise TypeError(
+                f"swap_weights takes a state_dict or an ObjectRef to one, "
+                f"not a {type(params).__name__}")
         version = int(version)
         applied = threading.Event()
         with self._cond:
@@ -874,6 +884,10 @@ class LLMEngine:
                 params, version, applied = self._pending_swaps.popleft()
             t0 = time.monotonic()
             try:
+                if _is_object_ref(params):
+                    import ray_tpu_torch
+
+                    params = ray_tpu_torch.get(params)
                 self._check_swap_tree(params)
             except BaseException:
                 # The loop is about to die (_fail_all); wake the blocked
@@ -1520,8 +1534,8 @@ class LLMServer:
     prefix cache; ``prefill=`` (a ``PrefillWorker``) disaggregated
     prefill.  As a Serve deployment over the actor runtime, with the
     object-plane batch path (``generate_batch``, ``generate_many``) and
-    the autoscaling metric, it waits for ROADMAP Queue 1 item 1a; those
-    entry points raise."""
+    the autoscaling metric, it waits for the Serve control plane (ROADMAP
+    Queue 1 item 9); those entry points raise."""
 
     def __init__(self, model_kind: str = "gpt2",
                  config_kw: Optional[dict] = None, seed: int = 0,
@@ -1560,7 +1574,7 @@ class LLMServer:
                        eos_id: Optional[int] = None, as_refs: bool = True,
                        sampling: Optional[list] = None):
         raise NotImplementedError(
-            f"generate_batch (the object-plane batch path) {_RUNTIME}")
+            f"generate_batch (the object-plane batch path) {_SERVE}")
 
     def submit_stream(self, prompt, max_new_tokens: int = 16,
                       eos_id: Optional[int] = None,
@@ -1581,7 +1595,8 @@ class LLMServer:
 
     def swap_weights(self, params, version: int,
                      timeout: Optional[float] = 60.0) -> int:
-        """Hot-swap this replica's weights (a ``state_dict``)."""
+        """Hot-swap this replica's weights (a ``state_dict`` or an
+        ``ObjectRef`` to one)."""
         return self.engine.swap_weights(params, version, timeout=timeout)
 
     def generate_rollouts(self, prompts, max_new_tokens: int = 16,
@@ -1599,7 +1614,7 @@ class LLMServer:
 
     def autoscale_metric(self) -> float:
         raise NotImplementedError(
-            f"autoscale_metric (LLMServer as a Serve deployment) {_RUNTIME}")
+            f"autoscale_metric (LLMServer as a Serve deployment) {_SERVE}")
 
     def drain(self):
         """Teardown: close the engine (fails in-flight requests with a
@@ -1613,4 +1628,4 @@ def generate_many(handle, prompts, max_new_tokens: int = 16,
                   sampling: Optional[List[SamplingParams]] = None,
                   timeout: float = 120.0) -> List[List[int]]:
     """The client half of the object-plane request path."""
-    raise NotImplementedError(f"generate_many {_RUNTIME}")
+    raise NotImplementedError(f"generate_many {_SERVE}")

@@ -14,13 +14,18 @@ Copied from the JAX package, which the port may not import:
 - ``PrefillWorker``, which runs a bucketed full prefill on its own copy
   of the model (on ``device``: CUDA unless ``device="cpu"``) and returns
   the pages of the uncached tail with the sampled next token;
-- ``_PrefillJob`` and ``PrefillClient`` with the ``"local"`` kind: the
-  worker's ``prefill`` runs on one background thread, and the engine
-  polls the job between decode steps.
+- ``_PrefillJob`` and ``PrefillClient`` with the ``"local"`` kind (the
+  worker's ``prefill`` runs on one background thread) and the
+  ``"actor"`` kind (a ``PrefillWorker`` actor of ``ray_tpu_torch``'s
+  runtime); the engine polls the job between decode steps;
+- the object plane: with ``use_object_plane`` (by default, when the
+  process drives a runtime it started) the page arrays ride
+  ``put_many`` and the payload carries their refs, which the client
+  resolves with ``get_many``.
 
-Not ported: prefill through a Serve deployment, an actor or the object
-plane (``use_object_plane=True``), which need the task/actor runtime
-(ROADMAP Queue 1 item 1a); each raises, naming it.
+Not ported: prefill through a Serve deployment (kind ``"deployment"``),
+which needs the Serve control plane (ROADMAP Queue 1 item 9); it raises,
+naming it.
 """
 from __future__ import annotations
 
@@ -34,8 +39,16 @@ import torch
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.serve.sampling import SamplingParams
 
-_RUNTIME = ("needs the task/actor runtime, not ported yet (ROADMAP Queue 1 "
-            "item 1a)")
+_SERVE = ("needs the Serve control plane, not ported yet (ROADMAP Queue 1 "
+          "item 9)")
+
+
+def _plane_up() -> bool:
+    """Whether this process drives a runtime it started (the default of
+    ``use_object_plane``; an actor's worker does not)."""
+    import ray_tpu_torch
+
+    return ray_tpu_torch.is_initialized()
 
 # ---------------------------------------------------------------------------
 # Block-int8 quantization, numpy (copy of ray_tpu/ops/collectives.py's
@@ -101,6 +114,9 @@ def pack_pages(k: np.ndarray, v: np.ndarray,
     return payload
 
 
+_WIRE_ARRAYS = {"native": ("k", "v"), "int8": ("kq", "ks", "vq", "vs")}
+
+
 def unpack_pages(payload: Dict[str, Any]) -> Tuple[np.ndarray, np.ndarray]:
     if payload["fmt"] == "native":
         return payload["k"], payload["v"]
@@ -118,16 +134,14 @@ class PrefillWorker:
     arguments) on ``device``, runs the engine's full prefill at the
     prompt's power-of-two bucket, and returns the per-position KV chopped
     into pages on the host, with the next token sampled by the request's
-    seeded sampler."""
+    seeded sampler.  It runs in-process or as an actor
+    (``ray_tpu_torch.remote(num_gpus=1)(PrefillWorker).remote(...)``)."""
 
     def __init__(self, model_kind: str = "gpt2",
                  config_kw: Optional[dict] = None, seed: int = 0,
                  page_size: int = 16, max_ctx: Optional[int] = None,
                  wire_dtype: str = "native",
                  use_object_plane: Optional[bool] = None, device=None):
-        if use_object_plane:
-            raise NotImplementedError(
-                f"PrefillWorker(use_object_plane=True) {_RUNTIME}")
         from ray_tpu_torch.serve.llm_engine import build_model
 
         self.device = resolve_device(device)
@@ -136,6 +150,7 @@ class PrefillWorker:
         self.page_size = int(page_size)
         self.max_ctx = int(max_ctx or c.max_position_embeddings)
         self.wire_dtype = wire_dtype
+        self._use_plane = use_object_plane
         self.num_layers = c.num_layers
         self.kv_heads = getattr(c, "num_kv_heads", c.num_heads)
         self.head_dim = c.head_dim
@@ -154,7 +169,9 @@ class PrefillWorker:
         """KV for ``tokens``; returns the pages covering positions
         ``[start, len(tokens))`` (``start`` is the engine's cached-prefix
         length, page-aligned: attention needs the whole prompt, the wire
-        only the uncached tail) and the sampled next token."""
+        only the uncached tail) and the sampled next token.  With the
+        object plane the page arrays ride ``put_many`` and the payload
+        carries their refs."""
         from ray_tpu_torch.serve.llm_engine import _full_forward, _sample_one
 
         t0 = time.perf_counter()
@@ -191,7 +208,17 @@ class PrefillWorker:
         self._stats["tokens"] += p - start
         self._stats["wire_bytes"] += payload["wire_bytes"]
         self._stats["fp32_bytes"] += payload["fp32_bytes"]
-        # Host wall time of the call; it ends by reading the pages back.
+        use_plane = self._use_plane if self._use_plane is not None \
+            else _plane_up()
+        if use_plane:
+            import ray_tpu_torch
+
+            names = _WIRE_ARRAYS[payload["fmt"]]
+            payload["refs"] = ray_tpu_torch.put_many(
+                [payload.pop(n) for n in names])
+            payload["ref_names"] = list(names)
+        # Host wall time of the call; it ends by reading the pages back
+        # (and putting them, with the object plane).
         self._stats["seconds"] += time.perf_counter() - t0
         return payload
 
@@ -225,20 +252,32 @@ class _PrefillJob:
             return None
         payload = self._future.result()
         self._delivered = True
-        k, v = unpack_pages(payload)
-        meta = {"wire_bytes": payload["wire_bytes"],
-                "fp32_bytes": payload["fp32_bytes"],
-                "exact": payload["fmt"] == "native",
-                "next_logp": payload.get("next_logp", float("nan"))}
-        return k, v, payload["next_token"], meta
+        return _resolve_payload(payload)
+
+
+def _resolve_payload(payload: Dict[str, Any]):
+    payload = dict(payload)
+    refs = payload.pop("refs", None)
+    if refs is not None:
+        import ray_tpu_torch
+
+        vals = ray_tpu_torch.get_many(list(refs))
+        payload.update(zip(payload.pop("ref_names"), vals))
+    k, v = unpack_pages(payload)
+    meta = {"wire_bytes": payload["wire_bytes"],
+            "fp32_bytes": payload["fp32_bytes"],
+            "exact": payload["fmt"] == "native",
+            "next_logp": payload.get("next_logp", float("nan"))}
+    return k, v, payload["next_token"], meta
 
 
 class PrefillClient:
     """Engine-facing adapter over an in-process ``PrefillWorker`` (kind
-    ``"local"``): the worker runs on one background thread, so prefill
+    ``"local"``: the worker runs on one background thread, so prefill
     overlaps the engine's decode loop wherever the device or the host
-    has room.  A Serve deployment handle or an actor handle (kinds
-    ``"deployment"`` and ``"actor"``) needs the runtime and raises."""
+    has room) or a ``PrefillWorker`` actor handle (kind ``"actor"``: the
+    job is the call's ``ObjectRef``).  A Serve deployment handle (kind
+    ``"deployment"``) needs the Serve control plane and raises."""
 
     def __init__(self, target):
         self._target = target
@@ -252,22 +291,23 @@ class PrefillClient:
         else:
             raise TypeError(
                 f"not a prefill target: {type(target).__name__} (need a "
-                "PrefillWorker)")
-        if self._kind != "local":
+                "PrefillWorker or a PrefillWorker actor handle)")
+        if self._kind == "deployment":
             raise NotImplementedError(
-                f"prefill through a {self._kind} handle {_RUNTIME}")
+                f"prefill through a deployment handle {_SERVE}")
 
     def submit(self, tokens, start: int,
                sampling: SamplingParams) -> _PrefillJob:
+        args = (list(tokens), int(start), float(sampling.temperature),
+                float(sampling.top_p), int(sampling.seed))
+        if self._kind == "actor":
+            return _PrefillJob(self._target.prefill.remote(*args).future())
         if self._pool is None:
             from concurrent.futures import ThreadPoolExecutor
 
             self._pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="rtt-prefill")
-        return _PrefillJob(self._pool.submit(
-            self._target.prefill, list(tokens), int(start),
-            float(sampling.temperature), float(sampling.top_p),
-            int(sampling.seed)))
+        return _PrefillJob(self._pool.submit(self._target.prefill, *args))
 
 
 def as_prefill_client(target) -> PrefillClient:

@@ -16,8 +16,8 @@ dtype (numpy has no bf16), so its byte budget counts what the JAX
 package's counts.
 
 Not ported: ``PrefixDirectory`` and ``create_directory``, the cluster
-half, which need the task/actor runtime (ROADMAP Queue 1 item 1a);
-``create_directory`` raises, naming it.
+half, which is left of ROADMAP Queue 1 item 1a with multi-host and client
+mode; ``create_directory`` raises, naming it.
 """
 from __future__ import annotations
 
@@ -139,9 +139,9 @@ class PrefixCacheLocal:
 
 
 def create_directory(max_entries: int = 4096):
-    """The cluster-wide page directory is an actor: it waits for the
-    task/actor runtime (ROADMAP Queue 1 item 1a)."""
+    """The cluster-wide page directory: left of ROADMAP Queue 1 item 1a,
+    with multi-host and client mode."""
     raise NotImplementedError(
-        "PrefixDirectory / create_directory need the task/actor runtime, "
-        "not ported yet (ROADMAP Queue 1 item 1a); use the local "
-        "PrefixCacheLocal (LLMEngine(prefix_cache=True))")
+        "PrefixDirectory / create_directory are not ported yet: they are "
+        "left of ROADMAP Queue 1 item 1a, with multi-host and client mode; "
+        "use the local PrefixCacheLocal (LLMEngine(prefix_cache=True))")

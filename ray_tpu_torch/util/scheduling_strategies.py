@@ -1,0 +1,25 @@
+"""Scheduling strategies (reference: python/ray/util/scheduling_strategies.py).
+
+Copied from ``ray_tpu/util/scheduling_strategies.py`` (the JAX package).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+
+class PlacementGroupSchedulingStrategy:
+    def __init__(self, placement_group, placement_group_bundle_index: int = -1,
+                 placement_group_capture_child_tasks: bool = False):
+        self.placement_group = placement_group
+        self.placement_group_bundle_index = placement_group_bundle_index
+        self.placement_group_capture_child_tasks = placement_group_capture_child_tasks
+
+
+class NodeAffinitySchedulingStrategy:
+    def __init__(self, node_id, soft: bool = False):
+        self.node_id = node_id
+        self.soft = soft
+
+
+# String strategies "DEFAULT" and "SPREAD" are passed directly as
+# scheduling_strategy="SPREAD" like the reference.

@@ -169,23 +169,96 @@ def test_int8_quantizer_equals_jax_numpy_mirror(shape, block):
         jcoll.dequantize_block_int8_np(jq, js, n).tobytes()
 
 
-class _ActorLike:
-    class prefill:  # noqa: N801 — the shape of an actor method handle
-        @staticmethod
-        def remote(*args):
-            raise AssertionError("never called")
-
-
 class _DeploymentLike:
     def method(self, name):
         raise AssertionError("never called")
 
 
-@pytest.mark.parametrize("call", [
-    lambda: tprefill.PrefillWorker(device="cpu", use_object_plane=True),
-    lambda: tprefill.PrefillClient(_ActorLike()),
-    lambda: tprefill.PrefillClient(_DeploymentLike()),
-], ids=["object_plane", "actor", "deployment"])
-def test_runtime_kinds_raise_naming_the_runtime(call):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1a"):
-        call()
+def test_deployment_kind_raises_naming_the_serve_control_plane():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        tprefill.PrefillClient(_DeploymentLike())
+
+
+# ---------------------------------------------------------------------------
+# Prefill through a PrefillWorker actor of the port's runtime, with and
+# without the object plane.  These come last: the module's cluster is up
+# from the first of them on, and an in-process worker left at
+# use_object_plane=None would take the plane whenever a cluster is up.
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def cluster():
+    import ray_tpu_torch
+
+    ray_tpu_torch.init(num_cpus=2, num_gpus=0,
+                       object_store_memory=256 * 1024**2)
+    yield ray_tpu_torch
+    ray_tpu_torch.shutdown()
+
+
+def _converted_worker_class():
+    """A PrefillWorker that serves the converted JAX weights.  Defined in a
+    function, so cloudpickle ships it by value to the actor's process."""
+
+    class ConvertedPrefillWorker(tprefill.PrefillWorker):
+        def __init__(self, state_dict, *args, **kw):
+            super().__init__(*args, **kw)
+            self._model.load_state_dict(state_dict)
+
+    return ConvertedPrefillWorker
+
+
+@pytest.mark.parametrize("plane", [False, True],
+                         ids=["actor", "actor_object_plane"])
+def test_actor_kind_gives_the_local_kind_tokens_and_jax_greedy(
+        models, cluster, plane):
+    """The engine in the driver, the worker an actor on device="cpu": the
+    sampled and greedy tokens, the counts and the wire bytes equal the
+    in-process worker's, the greedy tokens equal the JAX engine's, and no
+    page leaks.  With the object plane the payload carries refs to the
+    page arrays in place of the arrays."""
+    jmodel, params, tmodel = models
+    _, jw = _workers(tmodel)
+    tw = tprefill.PrefillWorker("gpt2", {"dtype": torch.float32}, 0,
+                                page_size=8, device="cpu",
+                                use_object_plane=False)
+    tw._model.load_state_dict(tmodel.state_dict())
+    actor_cls = cluster.remote(num_cpus=1)(_converted_worker_class())
+    actor = actor_cls.remote(tmodel.state_dict(), "gpt2",
+                             {"dtype": torch.float32}, 0, page_size=8,
+                             device="cpu", use_object_plane=plane)
+    kw = dict(max_slots=2, page_size=8, max_ctx=64, prefix_cache=True,
+              prefill_min_tokens=8)
+    rng = np.random.default_rng(29)
+    shared = list(map(int, rng.integers(0, 512, size=16)))
+    p1 = shared + [2, 4, 6, 8, 10, 12, 14, 1]
+    p2 = shared + [9] * 12
+    out, stats = {}, {}
+    for kind, target in (("local", tw), ("actor", actor)):
+        eng = LLMEngine(tmodel, device="cpu", prefill=target, **kw)
+        try:
+            out[kind] = (eng.result(eng.submit(p1, 6, sampling=SP),
+                                    timeout=120),
+                         eng.result(eng.submit(p2, 6), timeout=120))
+            stats[kind] = eng.stats()
+        finally:
+            eng.close()
+    jeng = jengine.LLMEngine(jmodel, params, prefill=jw, **kw)
+    try:
+        jeng.result(jeng.submit(p1, 6), timeout=120)
+        jo2 = jeng.result(jeng.submit(p2, 6), timeout=120)
+    finally:
+        jeng.close()
+    assert out["actor"] == out["local"] and out["actor"][1] == jo2
+    for key in ("prefill_offloaded", "wire_bytes", "wire_fp32_bytes",
+                "prefix_hit_pages", "prefill_tokens_saved"):
+        assert stats["actor"][key] == stats["local"][key], key
+    assert stats["actor"]["prefill_offloaded"] == 2
+    assert stats["actor"]["pages_in_use"] == 0
+    payload = cluster.get(actor.prefill.remote(p1, 8), timeout=120)
+    assert ("refs" in payload) == plane and ("k" in payload) != plane
+    k, v, nxt, _ = tprefill._resolve_payload(payload)
+    want = tw.prefill(p1, 8)
+    assert nxt == want["next_token"]
+    assert k.tobytes() == want["k"].tobytes()
+    assert v.tobytes() == want["v"].tobytes()
+    cluster.kill(actor)

@@ -7,6 +7,7 @@ Device: an entry point called without ``device=`` runs on CUDA, and where
 there is no CUDA it raises instead of running on the CPU; the training
 helpers take no device and run where the model is."""
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -43,6 +44,47 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu(path):
     bad = [(root, line) for root, line in _imported_roots(path)
            if root in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+# A module of the JAX package named in a string: ``ray_tpu.`` with no word
+# character or dot before it (``ray_tpu_torch.`` does not match).
+_JAX_MODULE_IN_STRING = re.compile(r"(?<![\w.])ray_tpu\.[A-Za-z_]")
+
+
+def _docstrings(tree):
+    return {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)
+            and isinstance(node.body[0].value.value, str)}
+
+
+def _strings_naming_jax_modules(source: str, filename: str = "<string>"):
+    tree = ast.parse(source, filename)
+    docs = _docstrings(tree)
+    return [(node.lineno, node.value) for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs
+            and _JAX_MODULE_IN_STRING.search(node.value)]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_strings_name_no_module_of_the_jax_package(path):
+    """A module path in a string is no import, so the AST walk above cannot
+    see it: a worker command ``-m ray_tpu._private.default_worker`` would
+    start the JAX package's worker.  Docstrings may name the source."""
+    bad = _strings_naming_jax_modules(path.read_text(), str(path))
+    assert not bad, f"{path.relative_to(ROOT)} names {bad}"
+
+
+def test_string_check_finds_a_copied_worker_command():
+    src = ('"""Names ray_tpu._private.raylet, its source."""\n'
+           'CMD = ["-m", "ray_tpu._private.default_worker"]\n'
+           'OK = ["-m", "ray_tpu_torch._private.default_worker"]\n'
+           'MSG = f"{1} ray_tpu.init() was not called"\n')
+    assert [line for line, _ in _strings_naming_jax_modules(src)] == [2, 4]
 
 
 def test_entry_points_without_device_raise_when_there_is_no_cuda():
@@ -123,3 +165,22 @@ def test_checkpoints_raise_naming_their_slice(method):
     args = () if method == "save_checkpoint" else (None,)
     with pytest.raises(NotImplementedError, match="Queue 1 item 1b"):
         getattr(algo, method)(*args)
+
+
+def test_chip_smokes_remote_code_pickles_by_value():
+    """``python3 chip_smoke.py`` runs the script as ``__main__``, so
+    cloudpickle ships its actor classes and task functions to the
+    workers by value, with every global they name: a module object
+    that cannot be pickled (``torch.backends``'s) fails the phase."""
+    import cloudpickle
+
+    import chip_smoke
+
+    cloudpickle.register_pickle_by_value(chip_smoke)
+    try:
+        for obj in (chip_smoke.GPUActor, chip_smoke.TrainActor,
+                    chip_smoke.cpu_task_view, chip_smoke.train_steps):
+            assert cloudpickle.loads(cloudpickle.dumps(obj)).__name__ == \
+                obj.__name__
+    finally:
+        cloudpickle.unregister_pickle_by_value(chip_smoke)

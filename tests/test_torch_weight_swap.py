@@ -295,13 +295,11 @@ def test_llm_server_swaps_and_returns_rollouts():
 
 
 @pytest.mark.parametrize("call,match", [
-    (lambda s: s.swap_weights(object(), 1), "Queue 1 item 1a"),
-    (lambda s: s.generate_batch([[1, 2]]), "Queue 1 item 1a"),
-    (lambda s: s.autoscale_metric(), "Queue 1 item 1a"),
-    (lambda s: generate_many(None, [[1, 2]]), "Queue 1 item 1a"),
+    (lambda s: s.generate_batch([[1, 2]]), "Queue 1 item 9"),
+    (lambda s: s.autoscale_metric(), "Queue 1 item 9"),
+    (lambda s: generate_many(None, [[1, 2]]), "Queue 1 item 9"),
     (lambda s: llama_split_stages(LlamaConfig.tiny(), 2), "Queue 1 item 8"),
-], ids=["swap_object_ref", "generate_batch", "autoscale_metric",
-        "generate_many", "llama"])
+], ids=["generate_batch", "autoscale_metric", "generate_many", "llama"])
 def test_left_out_entry_points_raise_naming_their_item(call, match):
     server = LLMServer("gpt2", {"dtype": torch.float32}, seed=0,
                        device="cpu", max_slots=2, max_ctx=64)
@@ -311,3 +309,47 @@ def test_left_out_entry_points_raise_naming_their_item(call, match):
         assert server.stats()["weight_version"] == 0
     finally:
         server.drain()
+
+
+def test_swap_weights_refuses_what_is_neither_a_state_dict_nor_a_ref(lm):
+    _, _, _, s1, _ = lm
+    eng = _engine(s1)
+    try:
+        with pytest.raises(TypeError, match="state_dict or an ObjectRef"):
+            eng.swap_weights(object(), 1)
+        assert eng.weight_version == 0
+    finally:
+        eng.close()
+
+
+def test_swap_weights_takes_an_object_ref_put_by_another_process(lm):
+    """The one-put weight broadcast: a task puts the new state_dict in its
+    own process and hands back the ref; the engine's loop resolves it at
+    the token boundary.  Tokens after the swap equal JAX greedy under the
+    new weights, and the version stamps say so."""
+    import ray_tpu_torch
+
+    jmodel, _, p2, s1, s2 = lm
+    prompt = _prompt(np.random.default_rng(3))
+    ray_tpu_torch.init(num_cpus=1, num_gpus=0,
+                       object_store_memory=128 * 1024**2)
+    try:
+        @ray_tpu_torch.remote
+        def publish(state):
+            return [ray_tpu_torch.put(state)]
+
+        (ref,) = ray_tpu_torch.get(publish.remote(s2), timeout=60)
+        assert isinstance(ref, ray_tpu_torch.ObjectRef)
+        eng = _engine(s1)
+        try:
+            assert eng.swap_weights(ref, 1, timeout=60) == 1
+            roll = eng.rollout(eng.submit(prompt, max_new_tokens=8),
+                               timeout=60)
+            st = eng.stats()
+        finally:
+            eng.close()
+    finally:
+        ray_tpu_torch.shutdown()
+    assert roll["versions"] == [1] * 8 and st["swaps"] == 1
+    assert roll["tokens"] == jengine.NaiveLM(jmodel, p2, width=64).generate(
+        prompt, 8)
