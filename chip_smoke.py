@@ -36,9 +36,15 @@ three main paths with random weights from a seed:
   leg's and to ``[disagg]``'s in-process native leg, occupancy, TTFT and
   tokens/s as readings), ``[swap-ref]`` (``swap_weights`` of a ref to a
   state dict a GPU actor put: the greedy tokens of an engine built with
-  those weights) and ``[actor-train]`` (``[train]``'s B=16 S=1024 steps
+  those weights), ``[actor-train]`` (``[train]``'s B=16 S=1024 steps
   in a GPU actor: the kernels the driver built, 12 launches of each a
-  step in the worker, the losses bit for bit ``[train]``'s);
+  step in the worker, the losses bit for bit ``[train]``'s) and
+  ``[trainer]`` (``bench_gpt2``'s two fits, B=16 S=1024 and B=4 S=4096,
+  through ``TorchTrainer`` with one GPU worker: int32 tokens from
+  ``data.from_numpy``, the batches through ``get_dataset_shard`` ->
+  ``iter_device_batches``; 12 launches of each kernel a step in the
+  worker, and at 1k the losses bit for bit those of the same steps on the
+  same batches in this process);
 - training: GPT-2 small steps (bf16 compute over fp32 parameters,
   ``adamw(3e-4)``, ``make_train_step``) at the JAX bench's two shapes,
   B=16 x S=1024 and B=4 x S=4096, every layer running the forward with
@@ -81,6 +87,9 @@ the fp32 step's shape.
 Every phase raises on failure and nothing is caught, so any failure
 exits non-zero.
 
+Just before the kernels line come one ``[record]`` line a phase (its
+seconds and headline numbers as compact JSON), so that a log cut to its
+last lines keeps every phase's numbers.
 The line before the last is the card's name and power limit, as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them; the line before that is a JSON object of every kernel's launches,
@@ -133,7 +142,9 @@ from ray_tpu_torch.serve import (
     build_model,
 )
 from ray_tpu_torch.serve.sampling import draw_seed
-from ray_tpu_torch.train import adamw, make_train_step
+from ray_tpu_torch import data as rdata
+from ray_tpu_torch.air import ScalingConfig
+from ray_tpu_torch.train import TorchTrainer, adamw, make_train_step
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s and
 # operations/s by input type.  The bound of a call is the larger of its
@@ -262,6 +273,25 @@ ENV_FLOAT_TOL = 1e-6
 
 def log(*args):
     print(*args, flush=True)
+
+
+# Each phase's seconds and headline numbers, printed again as one compact
+# line a phase just before the kernels line, so that a log cut to its
+# last lines still holds every phase's numbers.
+RECORD: dict = {}
+
+
+def note(tag, **numbers):
+    RECORD.setdefault(tag, {}).update(numbers)
+
+
+def record_lines() -> list:
+    def short(v):
+        return float(f"{v:.4g}") if isinstance(v, float) else v
+
+    return [f"[record] {tag} " + json.dumps(
+        {k: short(v) for k, v in numbers.items()}, separators=(",", ":"))
+        for tag, numbers in RECORD.items()]
 
 
 def card_line() -> str:
@@ -492,6 +522,8 @@ def phase_kernel_grid():
                         f"{lse_err:.3g}")
                 worst[dtype] = max(worst[dtype], err)
                 n += 1
+    note("kernel", cases=n, worst_fp32=worst[torch.float32],
+         worst_bf16=worst[torch.bfloat16])
     log(f"[kernel] flash_fwd == reference on {n} cases; worst fp32 max "
         f"|dO| {worst[torch.float32]:.3g} (atol {TOL[torch.float32]}); "
         f"worst bf16 |dO| / row max |O_ref| {worst[torch.bfloat16]:.3g} "
@@ -570,6 +602,8 @@ def phase_kernel_bwd_grid():
             got, want, _, _ = _bwd_case(q, k, v, False, gen)
             check(got, want, f"lq={lq} lk={lk} {str(dtype)[6:]} "
                   f"non-causal")
+    note("kernel-bwd", cases=n, worst_fp32=worst[torch.float32],
+         worst_bf16=worst[torch.bfloat16])
     log(f"[kernel-bwd] flash_dq, flash_dkv == reference on {n} cases; "
         f"worst fp32 max |dX| {worst[torch.float32]:.3g} (atol "
         f"{BWD_TOL[torch.float32]}); worst bf16 |dX| / row max |dX_ref| "
@@ -616,6 +650,8 @@ def margin_at(model, context):
 
 
 def engine_line(tag, st, seconds):
+    note(tag, decode_ms=st["decode_seconds"] / max(st["steps"], 1) * 1e3,
+         tokens_per_s=(st["tokens_generated"] + st["prefills"]) / seconds)
     log(f"[{tag}] engine: {st['steps']} decode steps, "
         f"{st['decode_seconds'] / max(st['steps'], 1) * 1e3:.2f} ms/step; "
         f"{st['prefills']} prefills, "
@@ -694,6 +730,7 @@ def phase_bf16_slice():
     err = (l16 - l32).abs().max().item()
     scale = l32.abs().max().item()
     agree = (l16.argmax(-1) == l32.argmax(-1)).float().mean().item()
+    note("bf16", rel_err=err / scale, argmax_agree=agree)
     log(f"[bf16] full-context logits vs fp32: max |d| {err:.4g} of max "
         f"|logit| {scale:.4g} ({err / scale:.2%}, bound "
         f"{BF16_LOGITS_REL:.0%}); argmax agreement {agree:.2%}")
@@ -808,6 +845,8 @@ def phase_spec(card, model) -> dict:
     step_ms = spec["decode_seconds"] / steps * 1e3
     sample_ms = split["draft_sample"] + split["verify_sample"]
     acceptance = spec["spec_accepted"] / spec["spec_proposed"]
+    note("spec", plain_tokens_per_s=plain_tps, spec_tokens_per_s=spec_tps,
+         acceptance=acceptance)
     log(f"[spec] {card} | GPT-2 small fp32, TF32 off, {SPEC_USERS} users, "
         f"prompts {int(lengths.min())}-{int(lengths.max())}, {SPEC_NEW} "
         f"new tokens at T=1.0: plain {plain_tps:.1f} tokens/s "
@@ -949,6 +988,9 @@ def phase_prefix(card, model) -> dict:
     if any(launches.values()):
         raise AssertionError(f"[prefix] the engine launched {launches}")
     hits = on16["prefix_hit_pages"]
+    note("prefix", off_p50_ms=off16["p50_ms"], on_p50_ms=on16["p50_ms"],
+         off_tokens_per_s=off16["tokens_per_s"],
+         on_tokens_per_s=on16["tokens_per_s"])
     log(f"[prefix] {card} | {PREFIX_USERS} users, fp32: cache-on outputs "
         f"token-identical to cache-off ({on['prefix_hit_pages']} hit pages, "
         f"prefill {off['prefill_ms']:.1f} -> {on['prefill_ms']:.1f} ms per "
@@ -1022,6 +1064,8 @@ def phase_disagg(card, model) -> tuple:
     want_tokens = len(first) + sum(len(p) - DISAGG_SHARED
                                    for p in sharing[1:]) + sum(map(len, alone))
     lens = sorted(len(p) for p in sharing + alone)
+    note("disagg", inline_s=inline_s, native_s=native_s,
+         wire_bytes=nst["wire_bytes"])
     log(f"[disagg] {card} | GPT-2 small fp32, prompts {lens}, "
         f"{DISAGG_NEW} new tokens, prefill_min_tokens {DISAGG_MIN_TOKENS}: "
         f"inline {inline_s:.2f} s ({ist['prefills']} prefills, "
@@ -1138,6 +1182,8 @@ def phase_swap(card, model) -> dict:
         np.testing.assert_allclose(got, ref, rtol=LOGP_RTOL, atol=LOGP_ATOL)
     del v0
     torch.cuda.empty_cache()
+    note("swap", swap_ms=st["swap_latency_s_avg"] * 1e3,
+         worst_logprob_rel=worst)
     log(f"[swap] {card} | GPT-2 small fp32, {SWAP_PROMPTS} rollouts of "
         f"{SWAP_NEW} sampled tokens: swap to version 1 in "
         f"{st['swap_latency_s_avg'] * 1e3:.1f} ms, "
@@ -1237,15 +1283,32 @@ class TrainActor:
     def setup(self) -> dict:
         for name in _build.SIGNATURES:
             _build.load(name)
-        with open("/proc/self/maps") as maps:
-            libs = sorted({line.split()[-1] for line in maps
-                           if "/_build/lib" in line})
-        return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
-                "libs": libs, "cudart": cudart_libs(),
-                "jax": jax_modules()}
+        return worker_setup()
 
     def train(self, b, length, iters) -> dict:
         return train_steps(b, length, iters)
+
+
+def worker_setup() -> dict:
+    """What a GPU worker sees: its card, the kernel libraries it loaded,
+    its CUDA runtimes, and any module of the JAX package."""
+    with open("/proc/self/maps") as maps:
+        libs = sorted({line.split()[-1] for line in maps
+                       if "/_build/lib" in line})
+    return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "libs": libs, "cudart": cudart_libs(), "jax": jax_modules()}
+
+
+def check_worker_setup(tag, setup) -> None:
+    """The worker saw the card as device 0, loaded every kernel from the
+    driver's build directory against one CUDA runtime, and no module of
+    the JAX package."""
+    build_dir = str(_build.BUILD_DIR)
+    if setup["visible"] != "0" or setup["jax"] or len(setup["libs"]) != \
+            len(_build.SIGNATURES) or not all(
+                lib.startswith(build_dir) for lib in setup["libs"]) or \
+            len(setup["cudart"]) != 1:
+        raise AssertionError(f"{tag} worker setup {setup}")
 
 
 def model_state(config_kw, seed, dtype=None) -> dict:
@@ -1323,6 +1386,8 @@ def phase_runtime(card) -> None:
         raise AssertionError(f"[runtime] the state dict differs: {wrong}")
     store = ("the native arena" if CONFIG.native_store
              else "per-object shared-memory segments (Python)")
+    note("runtime", cold_s=cold_s, put_gb_s=nbytes / put_s / 1e9,
+         get_gb_s=nbytes / get_s / 1e9, to_card_gb_s=nbytes / h2d_s / 1e9)
     log(f"[runtime] {card} | init(num_cpus={RUNTIME_CPUS}): {res}; a task "
         f"without GPUs sees CUDA_VISIBLE_DEVICES='' and resolve_device() "
         f"raises; a num_gpus=1 actor sees '0' = {seen['name']}, its cold "
@@ -1478,6 +1543,8 @@ def phase_disagg_actor(card, model, disagg_native) -> dict:
             f"{r['p50_ms']:.1f} ms p99 {r['p99_ms']:.1f} ms, "
             f"{r['tokens_per_s']:.1f} tokens/s, {r['steps_per_s']:.1f} "
             f"steps/s, {r['offloaded']} offloaded{extra}")
+    note("disagg-actor", **{f"{tag.split(',')[-1].strip()} tokens_per_s":
+                            r["tokens_per_s"] for tag, r in legs.items()})
     log(f"[disagg-actor] GPT-2 small fp32, {BENCH_SHORTS} short + "
         f"{BENCH_LONGS} long requests, greedy: both actor legs "
         f"token-identical to the colocated leg, and on [disagg]'s prompts "
@@ -1522,6 +1589,7 @@ def phase_swap_ref(card, model) -> dict:
         fresh.close()
     launches = dict(attn.LAUNCHES)
     torch.cuda.empty_cache()
+    note("swap-ref", put_s=put_s, swap_ms=st["swap_latency_s_avg"] * 1e3)
     log(f"[swap-ref] {card} | GPT-2 small fp32 state dict of seed "
         f"{SWAP_REF_SEED} put by a GPU actor in {put_s:.3f} s; "
         f"swap_weights(ref) applied in {st['swap_latency_s_avg'] * 1e3:.1f} "
@@ -1556,12 +1624,7 @@ def phase_actor_train(card, train) -> dict:
     run = ray_tpu_torch.get(actor.train.remote(b, length, iters),
                             timeout=GET_S)
     ray_tpu_torch.kill(actor)
-    build_dir = str(_build.BUILD_DIR)
-    if setup["visible"] != "0" or setup["jax"] or len(setup["libs"]) != \
-            len(_build.SIGNATURES) or not all(
-                lib.startswith(build_dir) for lib in setup["libs"]) or \
-            len(setup["cudart"]) != 1:
-        raise AssertionError(f"[actor-train] worker setup {setup}")
+    check_worker_setup("[actor-train]", setup)
     tokens_per_s, mfu, _ = check_train(f"[actor-train] {tag}", run, b,
                                        length, iters)
     local = train[tag]
@@ -1575,46 +1638,199 @@ def phase_actor_train(card, train) -> dict:
         f"[train]'s| {diff:.3g} (bitwise {run['losses'] == local['losses']}"
         f", bound {ACTOR_LOSS_ATOL}); launches {run['launches']}; peak "
         f"memory {run['peak_gib']:.1f} GiB")
+    note("actor-train", ms_per_step=run["seconds"] / iters * 1e3,
+         tokens_per_s=tokens_per_s, mfu=mfu, cold_s=cold_s,
+         bitwise=run["losses"] == local["losses"])
     if not diff <= ACTOR_LOSS_ATOL:
         raise AssertionError(f"[actor-train] losses {run['losses']} vs "
                              f"[train]'s {local['losses']}")
-    return {f"actor-train {tag}": run["launches"]}
+    return {f"actor-train {tag}": run["launches"]}, (tokens_per_s, mfu)
 
 
-def train_steps(b, length, iters, seed=SEED) -> dict:
+# [trainer]: bench_gpt2 (bench.py:186-215, :263-270) through TorchTrainer:
+# int32 tokens from default_rng(0), B * (iters + 2) rows (warm-up, timed
+# steps, one spare) in from_numpy(parallelism=8), one worker with one GPU.
+# At 1k the worker's losses must equal the same steps in this process on
+# the same batches bit for bit, as [actor-train]'s equal [train]'s.
+TRAINER_FITS = ((16, 1024, 20), (4, 4096, 10))  # (B, S, timed steps)
+TRAINER_LOSS_ATOL = 0.0
+
+
+def trainer_tokens(b, length, iters) -> np.ndarray:
+    return np.random.default_rng(0).integers(
+        0, 50257, size=(b * (iters + 2), length), dtype=np.int32)
+
+
+def process_start() -> float:
+    """This process's start on the wall clock (Linux: now, less the
+    seconds since boot, /proc/uptime, less its start in clock ticks after
+    boot, /proc/self/stat field 22)."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    return time.time() - (uptime - ticks / os.sysconf("SC_CLK_TCK"))
+
+
+def trainer_loop(config):
+    """bench.py's gpt2_train_loop (:56-176, the non-ZeRO branch) in the
+    port, run by TorchTrainer's worker: the batches come from the dataset
+    shard through iter_device_batches (pinned memory, a side stream), the
+    steps are ``train_steps``'.  Reports the bench's keys and what the
+    driver's checks read, the worker's process start among them."""
+    started = time.time()
+    from ray_tpu_torch.air import session
+
+    torch.set_float32_matmul_precision("highest")
+    b, length, iters = config["batch"], config["seq"], config["iters"]
+    stream = session.get_dataset_shard("train").iter_device_batches(b)
+    run = train_steps(b, length, iters,
+                      batches=(batch["tokens"] for batch in stream))
+    stream.close()
+    tokens_per_s, mfu, _ = train_rates(run, b, length, iters)
+    ended = time.time()
+    session.report({
+        "tokens_per_s": round(tokens_per_s), "mfu": round(mfu, 4),
+        "loss": run["losses"][-1],
+        "device_kind": torch.cuda.get_device_name(0),
+        "n_params": run["n_params"], "streaming_ingest": True,
+        "run": run, "spawned": process_start(), "started": started,
+        "ended": ended,
+        "peak_occupancy": stream.peak_occupancy, "setup": worker_setup()})
+
+
+def phase_trainer(card, train, actor_rates) -> dict:
+    """bench_gpt2's two fits through TorchTrainer on the port's Data
+    ingest: the worker launches each kernel 12 times a step from the
+    driver's build, its losses pass [train]'s checks, and at 1k they equal
+    this process's steps on the same batches bit for bit.  Returns the
+    fits' launches."""
+    out = {}
+    for b, length, iters in TRAINER_FITS:
+        tag = f"B={b} S={length}"
+        tokens = trainer_tokens(b, length, iters)
+        t0 = time.time()
+        result = TorchTrainer(
+            trainer_loop,
+            train_loop_config={"batch": b, "seq": length, "iters": iters},
+            datasets={"train": rdata.from_numpy({"tokens": tokens},
+                                                parallelism=8)},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True)).fit()
+        t_end = time.time()
+        fit_s = t_end - t0
+        if result.error is not None:
+            raise AssertionError(f"[trainer] {tag}: {result.error}")
+        m = result.metrics
+        run = m["run"]
+        check_worker_setup(f"[trainer] {tag}", m["setup"])
+        tokens_per_s, mfu, _ = check_train(f"[trainer] {tag}", run, b,
+                                           length, iters)
+        # The worker's cold start (fit to the loop's first line), split
+        # at its process's start: placement and spawn before it; imports,
+        # the process group, the split and the dispatch after it.
+        cold_s = m["started"] - t0
+        numbers = {"tokens_per_s": tokens_per_s, "mfu": mfu,
+                   "ms_per_step": run["seconds"] / iters * 1e3,
+                   "cold_s": cold_s, "to_spawn_s": m["spawned"] - t0,
+                   "in_worker_s": m["started"] - m["spawned"],
+                   "build_s": run["build_s"], "warm_s": run["warm_s"],
+                   "after_loop_s": t_end - m["ended"],
+                   "fit_s": fit_s, "peak_occupancy": m["peak_occupancy"]}
+        local = train[tag]
+        line = (f"[trainer] {card} | GPT-2 small {tag} through TorchTrainer "
+                f"(one worker, one GPU; int32 tokens through from_numpy -> "
+                f"iter_device_batches): {iters} steps {run['seconds']:.3f} s "
+                f"= {numbers['ms_per_step']:.1f} ms/step, {tokens_per_s:.0f} "
+                f"tokens/s, MFU {mfu:.4f} (reported {m['tokens_per_s']} "
+                f"tokens/s, MFU {m['mfu']}, on {m['device_kind']}); [train]"
+                f" {local['seconds'] / local['iters'] * 1e3:.1f} ms/step, "
+                f"{train_rates(local, b, length, local['iters'])[0]:.0f} "
+                f"tokens/s")
+        if length == 1024:
+            line += (f"; [actor-train] {actor_rates[0]:.0f} tokens/s, MFU "
+                     f"{actor_rates[1]:.4f}")
+            batches = (torch.from_numpy(tokens[i * b:(i + 1) * b]).to("cuda")
+                       for i in range(iters + 1))
+            here = train_steps(b, length, iters, batches=batches)
+            diff = max(abs(x - y) for x, y in zip(run["losses"],
+                                                  here["losses"]))
+            numbers["bitwise"] = run["losses"] == here["losses"]
+            line += (f"; max |loss - this process's on the same batches| "
+                     f"{diff:.3g} (bitwise {numbers['bitwise']}, bound "
+                     f"{TRAINER_LOSS_ATOL})")
+            if not diff <= TRAINER_LOSS_ATOL:
+                raise AssertionError(f"[trainer] {tag}: losses "
+                                     f"{run['losses']} vs {here['losses']}")
+        note(f"trainer {tag}", **numbers)
+        log(line + f"; worker cold start (fit to loop) {cold_s:.2f} s: "
+            f"{numbers['to_spawn_s']:.2f} s to the worker process's start "
+            f"(placement, spawn), {numbers['in_worker_s']:.2f} s in it "
+            f"before the loop (imports, the process group, the split, the "
+            f"dispatch); in the loop, the model's build {run['build_s']:.2f}"
+            f" s and the warm-up step {run['warm_s']:.2f} s ([train]'s "
+            f"{local['build_s']:.2f} and {local['warm_s']:.2f} s); from the "
+            f"report to fit's return {numbers['after_loop_s']:.2f} s; fit "
+            f"{fit_s:.1f} s; prefetch peak occupancy "
+            f"{m['peak_occupancy']}; loss "
+            f"{' '.join(f'{x:.4f}' for x in run['losses'])}; launches "
+            f"{run['launches']}; peak memory {run['peak_gib']:.1f} GiB")
+        out[f"trainer {tag}"] = run["launches"]
+    return out
+
+
+def train_steps(b, length, iters, seed=SEED, batches=None) -> dict:
     """GPT-2 small steps at B x S: bf16 compute over fp32 parameters,
-    adamw(3e-4), the same seeded ids every step (bench.py's synthetic
-    branch).  One warm-up step, then ``iters`` steps ended by one device
-    read of the last loss (bench.py:143-148).  The counts are zeroed just
-    before each window and read just after it.  ``[train]`` runs this in
-    the process, ``[actor-train]`` in a GPU actor."""
+    adamw(3e-4), on the ids ``batches`` yields (tensors on the card), or
+    the same seeded ids every step (bench.py's synthetic branch).  One
+    warm-up step, then ``iters`` steps ended by one device read of the
+    last loss (bench.py:143-148).  The counts are zeroed just before each
+    window and read just after it.  ``[train]`` runs this in the process,
+    ``[actor-train]`` in a GPU actor, ``[trainer]`` in TorchTrainer's
+    worker on the dataset shard's batches."""
+    t0 = time.perf_counter()
     model = build_model("gpt2", {"tiny": False,
                                  "max_position_embeddings": max(1024, length)},
                         seed=seed)
     cfg = model.config
     step = make_train_step(model, adamw(model.parameters(), 3e-4),
                            gpt2_loss_fn)
-    ids = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, size=(b, length))).to("cuda")
-    batch = {"input_ids": ids}
+    build_s = time.perf_counter() - t0
+    if batches is None:
+        ids = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, size=(b, length))).to("cuda")
+        batches = itertools.repeat(ids)
     zero_launches()
-    first = step(batch).item()
+    t0 = time.perf_counter()
+    first = step({"input_ids": next(batches)}).item()
+    warm_s = time.perf_counter() - t0
     warm = dict(attn.LAUNCHES)
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     t0 = time.perf_counter()
-    losses = [step(batch) for _ in range(iters)]
+    losses = [step({"input_ids": next(batches)}) for _ in range(iters)]
     losses[-1].item()  # the one device read: the barrier
     seconds = time.perf_counter() - t0
     timed = dict(attn.LAUNCHES)
     out = {"losses": [first] + torch.stack(losses).tolist(),
            "seconds": seconds, "warm_launches": warm, "launches": timed,
            "n_params": sum(p.numel() for p in model.parameters()),
+           "iters": iters, "build_s": build_s, "warm_s": warm_s,
            "num_layers": cfg.num_layers, "hidden_size": cfg.hidden_size,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     del model, step, losses
     torch.cuda.empty_cache()
     return out
+
+
+def train_rates(run, b, length, iters) -> tuple:
+    """(tokens/s, MFU, FLOPs a token) of one ``train_steps`` run, as
+    bench.py reckons them (:151-153): (6 N + 12 layers width S) FLOPs a
+    token over the bf16 peak."""
+    flops_per_token = (6 * run["n_params"] + 12 * run["num_layers"]
+                       * run["hidden_size"] * length)
+    tokens_per_s = iters * b * length / run["seconds"]
+    mfu = tokens_per_s * flops_per_token / PEAK_OPS_PER_S[torch.bfloat16]
+    return tokens_per_s, mfu, flops_per_token
 
 
 def check_train(tag, run, b, length, iters) -> tuple:
@@ -1640,11 +1856,7 @@ def check_train(tag, run, b, length, iters) -> tuple:
     if not last < first:
         raise AssertionError(f"{tag}: loss did not fall ({first:.4f} -> "
                              f"{last:.4f})")
-    flops_per_token = (6 * run["n_params"] + 12 * run["num_layers"]
-                       * run["hidden_size"] * length)
-    tokens_per_s = iters * b * length / run["seconds"]
-    mfu = tokens_per_s * flops_per_token / PEAK_OPS_PER_S[torch.bfloat16]
-    return tokens_per_s, mfu, flops_per_token
+    return train_rates(run, b, length, iters)
 
 
 def phase_train(card) -> dict:
@@ -1659,6 +1871,9 @@ def phase_train(card) -> dict:
         tokens_per_s, mfu, flops_per_token = check_train(
             f"[train] {tag}", run, b, length, iters)
         per_step = {name: run["num_layers"] for name in attn.LAUNCHES}
+        note("train", **{f"{tag} ms_per_step": run["seconds"] / iters * 1e3,
+                         f"{tag} tokens_per_s": tokens_per_s,
+                         f"{tag} mfu": mfu})
         log(f"[train] {card} | GPT-2 small {tag} bf16/fp32-params adamw: "
             f"{iters} steps in {run['seconds']:.3f} s = "
             f"{run['seconds'] / iters * 1e3:.1f} ms/step, "
@@ -1704,6 +1919,7 @@ def phase_train_fp32(tag="train-fp32", kind="gpt2",
            for n, g in grads["cuda"].items()}
     worst = max(rel, key=rel.get)
     loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    note(tag, loss_rel=loss_rel, worst_grad_rel=rel[worst])
     log(f"[{tag}] 2-layer {kind} B=1 S=1024 fp32 at full width, card vs "
         f"CPU: loss {losses['cuda']:.7f} vs {losses['cpu']:.7f} (rel "
         f"{loss_rel:.3g}, bound {FP32_LOSS_RTOL}); worst gradient relative "
@@ -1928,6 +2144,8 @@ def phase_llama_train(card, model) -> dict:
     tokens_per_s = iters * b * length / seconds
     mfu = tokens_per_s * flops_per_token / PEAK_OPS_PER_S[torch.bfloat16]
     routes = {name: r["bfloat16"] for name, r in routes_by_dtype().items()}
+    note("llama-train", ms_per_step=seconds / iters * 1e3,
+         tokens_per_s=tokens_per_s, mfu=mfu, peak_gib=peak)
     log(f"[llama-train] {card} | llama_1b B={b} S={length} bf16/fp32-params "
         f"adamw: {iters} steps in {seconds:.3f} s = "
         f"{seconds / iters * 1e3:.1f} ms/step, {tokens_per_s:.0f} tokens/s, "
@@ -1981,6 +2199,7 @@ def phase_timing(card) -> dict:
             q32, k32, v32, causal=True))
     bound_ms, bound_by = flash_bound(q, True)
     routes = routes_by_dtype()["flash_fwd"]
+    note("timing", fwd_ms=ms, sdpa_ms=sdpa_ms, fwd_fp32_ms=ms32)
     log(f"[timing] {card} | flash_fwd 1x12x1024x64 bf16 causal: kernel "
         f"({routes['bfloat16']}) {ms:.4f} ms, "
         f"{rate_line(q, True, 'fwd', ms)}; plain {plain_ms:.4f} ms, SDPA "
@@ -2085,6 +2304,8 @@ def phase_timing_bwd(card) -> dict:
         bounds = {name: flash_bound(q, True, name, with_lse=True)
                   for name in ("fwd", "dq", "dkv", "bwd")}
         routes = {name: r["bfloat16"] for name, r in routes_by_dtype().items()}
+        note("timing-bwd", **{f"{shape} {k}_ms": t[k]
+                              for k in ("fwd_lse", "dq", "dkv", "bwd")})
         log(f"[timing-bwd] {card} | {shape} bf16 causal {layout}, rates on "
             f"the visible pairs: fwd+LSE ({routes['flash_fwd']}) "
             f"{rate_line(q, True, 'fwd', t['fwd_lse'], True)}; dq "
@@ -2428,6 +2649,8 @@ def phase_ppo(card) -> dict:
     layout_ms = iter_prof["groups"].get("layout", 0.0)
     if any(attn.LAUNCHES.values()):
         raise AssertionError(f"[ppo] launched {attn.LAUNCHES}")
+    note("ppo", env_steps_per_s=timed["steps_per_s"], iter_ms=iter_ms,
+         floor_met_at=gate["met_at"])
     log(f"[ppo] {card} | PPO Breakout-Atari84 {PPO_ENVS} envs x "
         f"{PPO_UNROLL} steps, Nature CNN ({n_params} parameters), fp32, "
         f"TF32 off, eager: {PPO_TIMED_ITERS} iterations in "
@@ -2597,6 +2820,8 @@ def phase_ppo_minatar(card) -> dict:
         policy_prof = profile_device(
             lambda: algo.module.forward_exploration(st.obs, st.generator))
     split = timed["split"]
+    note("ppo-minatar", env_steps_per_s=timed["steps_per_s"],
+         iter_ms=timed["ms"], floor_met_at=gate["met_at"])
     log(f"[ppo-minatar] {card} | PPO Breakout-MinAtar {MINATAR_ENVS} envs "
         f"x {MINATAR_UNROLL} steps, MinAtar CNN, fp32, TF32 off, eager: "
         f"reward floor {MINATAR_REWARD_FLOOR} met at iteration "
@@ -2664,6 +2889,8 @@ def phase_impala(card) -> dict:
     if gate_seed is None:
         raise AssertionError(f"[impala] no seed met the floor "
                              f"{IMPALA_FLOOR}: {tried}")
+    note("impala", env_steps_per_s=timed["steps_per_s"], gate_seed=gate_seed,
+         gate_reward=gate_reward)
     log(_impala_line("impala", card, timed) + f"; gate seed {gate_seed} "
         f"(reward {gate_reward:.2f}), timed reward "
         f"{timed['metrics']['episode_reward_mean']:.2f}; flash launches "
@@ -2682,6 +2909,7 @@ def phase_appo(card) -> dict:
     algo.train()
     timed = timed_iterations(algo, APPO_TIMED_ITERS, IMPALA_PHASES)
     m = timed["metrics"]
+    note("appo", env_steps_per_s=timed["steps_per_s"])
     log(_impala_line("appo", card, timed) + f"; last losses: total "
         f"{m['total_loss']:.4f}, policy {m['policy_loss']:.4f}, vf "
         f"{m['vf_loss']:.4f}, entropy {m['entropy']:.4f}; flash launches "
@@ -2722,6 +2950,7 @@ def phase_memory(card) -> dict:
         prof = profile_device(algo.train)
         # The first iteration warms the allocator and cuDNN/cuBLAS.
         ms = np.mean(iter_s[1:] or iter_s) * 1e3
+        note("memory", **{f"{kind} iter_ms": ms, f"{kind} best": best})
         log(f"[memory] {card} | {kind} PPO StatelessCartPole "
             f"{MEMORY_ENVS} envs x {MEMORY_UNROLL} steps: best reward "
             f"{best:.1f} >= {MEMORY_FLOOR} at iteration {i + 1}; "
@@ -2739,62 +2968,70 @@ def phase_memory(card) -> dict:
     return out
 
 
+def timed(tag, phase, *args):
+    """Run one phase, log its seconds and keep them for its record line."""
+    RECORD.setdefault(tag, {})
+    t_phase = time.perf_counter()
+    out = phase(*args)
+    seconds = time.perf_counter() - t_phase
+    note(tag, s=seconds)
+    log(f"[{tag}] {seconds:.1f} s")
+    return out
+
+
 def main():
     t0 = time.perf_counter()
-    phase_device()
+    timed("device", phase_device)
     card = card_line()
-    phase_build()
-    phase_kernel_grid()
-    phase_kernel_bwd_grid()
-    serve_launches = phase_fp32_slice()
-    phase_bf16_slice()
+    timed("build", phase_build)
+    timed("kernel", phase_kernel_grid)
+    timed("kernel-bwd", phase_kernel_bwd_grid)
+    serve_launches = timed("fp32", phase_fp32_slice)
+    timed("bf16", phase_bf16_slice)
     serve_model = build_model("gpt2", GPT2_SMALL_FP32, seed=SEED)
     serving = {}
-
-    def timed(phase, *args):
-        t_phase = time.perf_counter()
-        out = phase(card, *args)
-        log(f"[{phase.__name__[6:].replace('_', '-')}] "
-            f"{time.perf_counter() - t_phase:.1f} s")
-        return out
-
-    serving.update(timed(phase_spec, serve_model))
-    serving.update(timed(phase_prefix, serve_model))
-    launches, disagg_native = timed(phase_disagg, serve_model)
+    serving.update(timed("spec", phase_spec, card, serve_model))
+    serving.update(timed("prefix", phase_prefix, card, serve_model))
+    launches, disagg_native = timed("disagg", phase_disagg, card,
+                                    serve_model)
     serving.update(launches)
     # The runtime's phases share one cluster on this machine (its workers
-    # are subprocesses), up from [runtime] to [actor-train], which needs
-    # [train]'s losses; [swap] runs after [swap-ref] because it perturbs
-    # the serving model's weights.
+    # are subprocesses), up from [runtime] to [trainer]: [actor-train]
+    # needs [train]'s losses, [trainer] [train]'s and [actor-train]'s
+    # rates; [swap] runs after [swap-ref] because it perturbs the serving
+    # model's weights.
     ray_tpu_torch.init(num_cpus=RUNTIME_CPUS)
     try:
-        timed(phase_runtime)
-        serving.update(timed(phase_disagg_actor, serve_model, disagg_native))
-        serving.update(timed(phase_swap_ref, serve_model))
-        serving.update(timed(phase_swap, serve_model))
+        timed("runtime", phase_runtime, card)
+        serving.update(timed("disagg-actor", phase_disagg_actor, card,
+                             serve_model, disagg_native))
+        serving.update(timed("swap-ref", phase_swap_ref, card, serve_model))
+        serving.update(timed("swap", phase_swap, card, serve_model))
         del serve_model
         torch.cuda.empty_cache()
-        train = phase_train(card)
-        actor_train = timed(phase_actor_train, train)
+        train = timed("train", phase_train, card)
+        actor_train, actor_rates = timed("actor-train", phase_actor_train,
+                                         card, train)
+        trainer = timed("trainer", phase_trainer, card, train, actor_rates)
     finally:
         ray_tpu_torch.shutdown()
-    phase_train_fp32()
-    t_phase = time.perf_counter()
-    llama, model = phase_llama_serve(card)
+    timed("train-fp32", phase_train_fp32)
+    llama, model = timed("llama-serve", phase_llama_serve, card)
     model = llama_copy(model, dtype=torch.bfloat16)
-    llama["llama-train"] = phase_llama_train(card, model)
+    llama["llama-train"] = timed("llama-train", phase_llama_train, card,
+                                 model)
     del model
     torch.cuda.empty_cache()
-    phase_train_fp32("llama-train-fp32", "llama", LLAMA_1B.items(),
-                     llama_loss_fn)
-    log(f"[llama] {time.perf_counter() - t_phase:.1f} s")
-    timing = phase_timing(card)
-    timing_bwd = phase_timing_bwd(card)
-    phase_timing_fp32(card)
-    phase_ppo_parity()
-    ppo = phase_ppo(card)
-    phase_envs()
-    rl = {"ppo-minatar": phase_ppo_minatar(card)["flash"]}
+    timed("llama-train-fp32", phase_train_fp32, "llama-train-fp32", "llama",
+          LLAMA_1B.items(), llama_loss_fn)
+    timing = timed("timing", phase_timing, card)
+    timing_bwd = timed("timing-bwd", phase_timing_bwd, card)
+    timed("timing-fp32", phase_timing_fp32, card)
+    timed("ppo-parity", phase_ppo_parity)
+    ppo = timed("ppo", phase_ppo, card)
+    timed("envs", phase_envs)
+    rl = {"ppo-minatar": timed("ppo-minatar", phase_ppo_minatar,
+                               card)["flash"]}
     # IMPALA's gate is close: on an H100 seeds 0 and 1 end at 1.49 against
     # the floor of 1.5.  cuDNN documents its weight-gradient algorithms 0
     # and 3 as non-deterministic (atomic adds), with which a rerun need not
@@ -2802,15 +3039,17 @@ def main():
     # deterministic algorithms, so that the same card and stack repeat
     # each seed's outcome.
     torch.backends.cudnn.deterministic = True
-    rl["impala"] = phase_impala(card)["flash"]
-    rl["appo"] = phase_appo(card)["flash"]
+    rl["impala"] = timed("impala", phase_impala, card)["flash"]
+    rl["appo"] = timed("appo", phase_appo, card)["flash"]
     torch.backends.cudnn.deterministic = False
-    rl.update({f"ppo-{kind}": n for kind, n in phase_memory(card).items()})
+    rl.update({f"ppo-{kind}": n
+               for kind, n in timed("memory", phase_memory, card).items()})
+    note("done", s=time.perf_counter() - t0)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     by_path = {"serve": {"flash_fwd": serve_launches}, **serving,
                **{f"train {tag}": run["launches"]
                   for tag, run in train.items()},
-               **actor_train,
+               **actor_train, **trainer,
                **llama, "ppo": ppo["flash"], **rl}
     # dq's and dkv's top-level fields are those of the first training
     # shape; the forward's are the serving shape's.
@@ -2826,6 +3065,8 @@ def main():
          timing_bwd["flash_dkv"]),
     ]
     routes = routes_by_dtype()
+    for line in record_lines():
+        log(line)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "routes_by_dtype": routes[name],

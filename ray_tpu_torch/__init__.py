@@ -38,7 +38,7 @@ def _global_head():
 
 
 def _default_num_cpus() -> float:
-    env = os.environ.get("RAY_TPU_NUM_CPUS")
+    env = os.environ.get("RAY_TPU_TORCH_NUM_CPUS")
     if env:
         return float(env)
     # On tiny dev machines a detected count of 1 starves multi-actor
@@ -47,7 +47,7 @@ def _default_num_cpus() -> float:
 
 
 def _detect_num_gpus() -> float:
-    env = os.environ.get("RAY_TPU_NUM_GPUS")
+    env = os.environ.get("RAY_TPU_TORCH_NUM_GPUS")
     if env:
         return float(env)
     import torch
@@ -124,7 +124,7 @@ def init(num_cpus: Optional[float] = None, num_gpus: Optional[float] = None,
          address: Optional[str] = None, **kwargs):
     """Start a local cluster head + connect this process as the driver.
     ``num_gpus`` defaults to ``torch.cuda.device_count()`` (or
-    ``RAY_TPU_NUM_GPUS``); joining a remote head (``address=``) raises.
+    ``RAY_TPU_TORCH_NUM_GPUS``); joining a remote head (``address=``) raises.
 
     Reference: ray.init (python/ray/_private/worker.py:1043)."""
     global _head

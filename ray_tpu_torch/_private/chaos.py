@@ -4,18 +4,18 @@ Reference: asio delay injection (src/ray/common/asio/asio_chaos.h:22, flag
 RAY_testing_asio_delay_us in ray_config_def.h:735-738) and the node-killer
 actor (python/ray/_private/test_utils.py:1337).
 
-Enable delays with RAY_TPU_TESTING_DELAY_MS="<op_substr>:<min>:<max>", e.g.
+Enable delays with RAY_TPU_TORCH_TESTING_DELAY_MS="<op_substr>:<min>:<max>", e.g.
 "submit:0:20" delays every task submission by 0-20ms.  `kill_random_worker`
 is the in-process node-killer equivalent.
 
 Gang-level fault injection (mesh fault-tolerance testing): set
-RAY_TPU_TESTING_KILL_SCHEDULE to a ``;``-separated list of
+RAY_TPU_TORCH_TESTING_KILL_SCHEDULE to a ``;``-separated list of
 ``<op>:<rank>:<nth>[:<generation>]`` entries — when the matching op fires
 for the ``nth`` time (1-based, counted per process) at ``rank`` in gang
 ``generation`` the process SIGKILLs itself, simulating a hard rank crash
 mid-collective.  ``rank`` and ``generation`` accept ``*`` (any); generation
 defaults to ``0`` so a restarted gang (which re-exports
-RTPU_MESH_GENERATION) survives by default, making restart-then-succeed
+RTTP_MESH_GENERATION) survives by default, making restart-then-succeed
 loops deterministic.  Kill sites: ``mesh_run`` (MeshWorker.run entry),
 ``train_report`` (TrainWorker result reporting), and the node-agent
 sites ``node_agent_spawn`` (counted per spawn_worker command),
@@ -29,7 +29,7 @@ group.
 
 Message-level transport faults (drop/duplicate/delay/sever individual
 control- and data-plane messages, deterministic and seeded): set
-RAY_TPU_TESTING_NET_SCHEDULE — see :class:`NetSchedule` and
+RAY_TPU_TORCH_TESTING_NET_SCHEDULE — see :class:`NetSchedule` and
 docs/FAULT_TOLERANCE.md "RPC deadlines, retries, and transport chaos".
 
 Copied from ``ray_tpu/_private/chaos.py`` (the JAX package).
@@ -41,9 +41,9 @@ import random
 import time
 from typing import List, Optional, Tuple
 
-KILL_SCHEDULE_ENV = "RAY_TPU_TESTING_KILL_SCHEDULE"
-GENERATION_ENV = "RTPU_MESH_GENERATION"
-NET_SCHEDULE_ENV = "RAY_TPU_TESTING_NET_SCHEDULE"
+KILL_SCHEDULE_ENV = "RAY_TPU_TORCH_TESTING_KILL_SCHEDULE"
+GENERATION_ENV = "RTTP_MESH_GENERATION"
+NET_SCHEDULE_ENV = "RAY_TPU_TORCH_TESTING_NET_SCHEDULE"
 
 
 # ---------------------------------------------------------------------------
@@ -52,7 +52,7 @@ NET_SCHEDULE_ENV = "RAY_TPU_TESTING_NET_SCHEDULE"
 class NetSchedule:
     """A seeded, deterministic message-fault schedule.
 
-    RAY_TPU_TESTING_NET_SCHEDULE is a ``;``-separated list of
+    RAY_TPU_TORCH_TESTING_NET_SCHEDULE is a ``;``-separated list of
     ``<op>:<kind>:<prob>:<seed>[:<times>[:<delay_ms>]]`` entries:
 
     - ``op``    — substring matched against the fault-point label.
@@ -149,7 +149,7 @@ _net_schedule_spec: Optional[str] = None
 
 
 def net_schedule() -> Optional[NetSchedule]:
-    """Process-wide schedule parsed from RAY_TPU_TESTING_NET_SCHEDULE
+    """Process-wide schedule parsed from RAY_TPU_TORCH_TESTING_NET_SCHEDULE
     (re-parsed when the env var changes, like the kill schedule)."""
     global _net_schedule, _net_schedule_spec
     spec = os.environ.get(NET_SCHEDULE_ENV)
@@ -266,7 +266,7 @@ def wrap_net_faults(conn):
 
 
 def _parse() -> Optional[Tuple[str, float, float]]:
-    spec = os.environ.get("RAY_TPU_TESTING_DELAY_MS")
+    spec = os.environ.get("RAY_TPU_TORCH_TESTING_DELAY_MS")
     if not spec:
         return None
     try:
@@ -292,7 +292,7 @@ class ChaosSchedule:
     Entries are (op, rank, nth, generation); rank/generation may be None
     (wildcard).  ``should_die(op, rank)`` is called at each kill site with
     the process's per-op invocation count and the gang generation from
-    RTPU_MESH_GENERATION."""
+    RTTP_MESH_GENERATION."""
 
     def __init__(self, entries: List[Tuple[str, Optional[int], int,
                                            Optional[int]]]):

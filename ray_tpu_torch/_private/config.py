@@ -4,7 +4,7 @@ Reference: the RAY_CONFIG x-macro registry (src/ray/common/ray_config_def.h
 :17-22, 189 flags, overridable per-process via RAY_<name> env vars and the
 _system_config dict passed to ray.init).  Same contract here: every
 tunable the runtime consults is DECLARED in one table with a type and
-default, overridable via ``RAY_TPU_<NAME>`` env vars or
+default, overridable via ``RAY_TPU_TORCH_<NAME>`` env vars or
 ``ray_tpu_torch.init(_system_config={...})`` — ad-hoc os.environ.get calls are
 the anti-pattern this replaces.
 
@@ -16,7 +16,7 @@ import os
 import threading
 from typing import Any, Callable, Dict, Optional
 
-_ENV_PREFIX = "RAY_TPU_"
+_ENV_PREFIX = "RAY_TPU_TORCH_"
 
 
 def _parse_bool(s: str) -> bool:
@@ -41,7 +41,7 @@ class _Flag:
 class RayTpuConfig:
     """Singleton flag table (reference: RayConfig, ray_config.h).
 
-    Resolution order per flag: _system_config override > RAY_TPU_<NAME>
+    Resolution order per flag: _system_config override > RAY_TPU_TORCH_<NAME>
     env var > declared default.  Values are cached after first read;
     ``reset()`` clears the cache (tests)."""
 
@@ -209,7 +209,7 @@ CONFIG \
              "spans within one trace are dropped and counted.") \
     .declare("flight_record_dir", str, "",
              "Crash flight-recorder bundle directory (also "
-             "RAY_TPU_FLIGHT_RECORD_DIR); empty disables postmortem "
+             "RAY_TPU_TORCH_FLIGHT_RECORD_DIR); empty disables postmortem "
              "bundles.") \
     .declare("flight_record_max", int, 16,
              "Max flight-record bundles kept; oldest pruned.") \
@@ -242,7 +242,7 @@ CONFIG \
              "Default overall deadline (seconds) for control-plane "
              "requests without an explicit timeout; 0 keeps blocking "
              "semantics unbounded (lost replies still recover via "
-             "per-attempt resends).  Env: RAY_TPU_RPC_TIMEOUT.") \
+             "per-attempt resends).  Env: RAY_TPU_TORCH_RPC_TIMEOUT.") \
     .declare("rpc_attempt_timeout", float, 15.0,
              "Per-attempt reply wait before a pending request frame is "
              "resent (idempotency keys + the head reply cache make the "
@@ -255,7 +255,7 @@ CONFIG \
     .declare("rpc_acked_ops", bool, False,
              "Route one-way notifies/submits through acked, idempotency-"
              "keyed requests so dropped frames are retried (auto-enabled "
-             "while RAY_TPU_TESTING_NET_SCHEDULE is set).") \
+             "while RAY_TPU_TORCH_TESTING_NET_SCHEDULE is set).") \
     .declare("rpc_reply_cache_size", int, 1024,
              "Head-side idempotency reply-cache entries (exactly-once "
              "dedup window for retried/duplicated frames).") \

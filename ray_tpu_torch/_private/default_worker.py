@@ -44,16 +44,16 @@ def main():
         faulthandler.register(signal.SIGUSR1)
     except Exception:
         pass
-    authkey = bytes.fromhex(os.environ["RAY_TPU_AUTHKEY"])
-    node_id = NodeID.from_hex(os.environ["RAY_TPU_NODE_ID"])
-    worker_id = WorkerID.from_hex(os.environ["RAY_TPU_WORKER_ID"])
+    authkey = bytes.fromhex(os.environ["RAY_TPU_TORCH_AUTHKEY"])
+    node_id = NodeID.from_hex(os.environ["RAY_TPU_TORCH_NODE_ID"])
+    worker_id = WorkerID.from_hex(os.environ["RAY_TPU_TORCH_WORKER_ID"])
 
-    head_addr = os.environ.get("RAY_TPU_HEAD_ADDR")
+    head_addr = os.environ.get("RAY_TPU_TORCH_HEAD_ADDR")
     if head_addr:  # worker on a remote node: TCP to the head
         host, port = head_addr.rsplit(":", 1)
         conn = Client((host, int(port)), family="AF_INET", authkey=authkey)
     else:
-        socket_path = os.environ["RAY_TPU_HEAD_SOCKET"]
+        socket_path = os.environ["RAY_TPU_TORCH_HEAD_SOCKET"]
         conn = Client(socket_path, family="AF_UNIX", authkey=authkey)
     transport = ConnTransport(conn, authkey)
     worker = CoreWorker(worker_id, node_id, JobID.nil(), transport, mode="worker")
@@ -72,8 +72,8 @@ def main():
     if CONFIG.direct_transport:
         from ray_tpu_torch._private.direct import DirectServer
 
-        host_key = os.environ.get("RAY_TPU_HOST_KEY", "")
-        session_dir = os.environ.get("RAY_TPU_SESSION_DIR")
+        host_key = os.environ.get("RAY_TPU_TORCH_HOST_KEY", "")
+        session_dir = os.environ.get("RAY_TPU_TORCH_SESSION_DIR")
         # Remote-node workers must be reachable cross-host; local workers
         # mirror the head's bind posture (loopback unless configured).
         tcp_bind = "0.0.0.0" if head_addr else CONFIG.tcp_host

@@ -164,7 +164,7 @@ class Head:
         # remote nodes all connect here (the networked flank of the same
         # control protocol the AF_UNIX listener speaks).  Binds loopback by
         # default — a purely local cluster must not expose its control
-        # plane on external interfaces; set RAY_TPU_TCP_HOST=0.0.0.0 when
+        # plane on external interfaces; set RAY_TPU_TORCH_TCP_HOST=0.0.0.0 when
         # remote hosts are expected to join.
         from ray_tpu_torch._private.config import CONFIG
 

@@ -160,13 +160,13 @@ class Raylet:
         It sets CUDA_VISIBLE_DEVICES on every worker but a shared-mode GPU
         worker, which keeps the inherited value."""
         env = {
-            "RAY_TPU_AUTHKEY": self.head.authkey.hex(),
-            "RAY_TPU_NODE_ID": self.node_id.hex(),
-            "RAY_TPU_WORKER_ID": worker_id.hex(),
+            "RAY_TPU_TORCH_AUTHKEY": self.head.authkey.hex(),
+            "RAY_TPU_TORCH_NODE_ID": self.node_id.hex(),
+            "RAY_TPU_TORCH_WORKER_ID": worker_id.hex(),
             # Host identity for the direct transport's endpoint selection
             # (same host => unix socket; cross-host => TCP).  RemoteRaylet
             # overrides with its agent's host key.
-            "RAY_TPU_HOST_KEY": getattr(self, "host_key", None)
+            "RAY_TPU_TORCH_HOST_KEY": getattr(self, "host_key", None)
                                  or self.head.host_key,
         }
         # Tracing plane: ship the driver's RESOLVED tracing switch — the
@@ -176,7 +176,7 @@ class Raylet:
             from ray_tpu_torch.util.tracing import tracing_enabled
 
             if tracing_enabled():
-                env["RAY_TPU_TRACING_ENABLED"] = "1"
+                env["RAY_TPU_TORCH_TRACING_ENABLED"] = "1"
         except Exception:
             pass
         if gpu_visible and gpus:
@@ -197,8 +197,8 @@ class Raylet:
         from ray_tpu_torch._private import inject_pkg_pythonpath
 
         inject_pkg_pythonpath(env)
-        env["RAY_TPU_HEAD_SOCKET"] = self.head.socket_path
-        env["RAY_TPU_SESSION_DIR"] = self.head.session_dir
+        env["RAY_TPU_TORCH_HEAD_SOCKET"] = self.head.socket_path
+        env["RAY_TPU_TORCH_SESSION_DIR"] = self.head.session_dir
         # Per-worker log files, tailed by the head's LogMonitor and echoed
         # to the driver (reference: log_monitor.py:104).
         logs_dir = os.path.join(self.head.session_dir, "logs")

@@ -23,6 +23,7 @@ from __future__ import annotations
 import hashlib
 import io
 import os
+import tempfile
 import threading
 import zipfile
 from typing import List, Optional, Tuple
@@ -177,8 +178,9 @@ def normalize_py_modules(renv: Optional[dict], transport) -> Optional[dict]:
 # Worker side
 # ---------------------------------------------------------------------------
 def _cache_root() -> str:
-    return os.environ.get("RTPU_PKG_CACHE",
-                          os.path.join("/tmp", "rtpu_pkg_cache"))
+    return os.environ.get("RTTP_PKG_CACHE",
+                          os.path.join(tempfile.gettempdir(),
+                                       "rttp_pkg_cache"))
 
 
 def ensure_local(uri: str, transport) -> str:

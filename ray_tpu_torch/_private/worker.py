@@ -249,7 +249,7 @@ class ConnTransport:
     Deadlines + retries: every ``request`` frame carries an idempotency
     key.  A blocking request waits ``rpc_attempt_timeout`` for its reply
     and then resends the same frame (exponentially paced), bounded by the
-    caller's timeout (or RAY_TPU_RPC_TIMEOUT when set) — on expiry it
+    caller's timeout (or RAY_TPU_TORCH_RPC_TIMEOUT when set) — on expiry it
     raises :class:`RpcTimeoutError` instead of blocking forever.  Under
     ``rpc_acked_ops`` (auto-on while a net-fault schedule is active),
     one-way ops (submits, seal/put notifies, task_done) also ride keyed
@@ -270,7 +270,7 @@ class ConnTransport:
         self.conn = chaos_mod.wrap_net_faults(conn)
         self.authkey = authkey
         if self.authkey is None:
-            hexkey = os.environ.get("RAY_TPU_AUTHKEY")
+            hexkey = os.environ.get("RAY_TPU_TORCH_AUTHKEY")
             self.authkey = bytes.fromhex(hexkey) if hexkey else None
         self._send_lock = threading.Lock()
         self._pending: Dict[int, _Rpc] = {}

@@ -136,3 +136,28 @@ class OutOfMemoryError(RayTpuError):
 
 class PlacementGroupSchedulingError(RayTpuError):
     """Placement group could not be reserved (infeasible or timeout)."""
+
+
+class MeshGroupError(RayTpuError):
+    """A gang of ranks is poisoned: one or more ranks died (or timed out)
+    while a fan-out to the gang was in flight, so the survivors may be
+    blocked in a collective that can never complete; ``gang_get`` raises
+    this eagerly instead of letting ``get()`` hang on them.
+
+    ``failed_ranks`` maps rank -> the underlying per-rank exception (an
+    ``ActorDiedError``/``WorkerCrashedError``/``TaskError``...).
+    ``restarts`` records how many gang restarts had been consumed when the
+    error was raised."""
+
+    def __init__(self, msg: str = "mesh group failed",
+                 failed_ranks: Optional[dict] = None, restarts: int = 0):
+        self.failed_ranks = dict(failed_ranks or {})
+        self.restarts = restarts
+        self._base_msg = msg
+        if self.failed_ranks:
+            detail = ", ".join(
+                f"rank {r}: {type(e).__name__}" if isinstance(e, BaseException)
+                else f"rank {r}: {e}"
+                for r, e in sorted(self.failed_ranks.items()))
+            msg = f"{msg} (failed ranks: {detail})"
+        super().__init__(msg)

@@ -202,7 +202,10 @@ class GPT2(nn.Module):
 def gpt2_loss_fn(model: GPT2, batch) -> torch.Tensor:
     """Next-token cross-entropy (``ray_tpu.models.gpt2.gpt2_loss_fn``):
     batch ``{"input_ids": [B, L]}``, labels the shifted inputs; the mean
-    over the B*(L-1) positions of -log_softmax of the fp32 logits."""
+    over the B*(L-1) positions of -log_softmax of the fp32 logits.  The
+    ids may be any integer dtype (the JAX bench feeds int32 tokens);
+    ``cross_entropy`` takes its targets as int64."""
     ids = batch["input_ids"]
     logits = model(ids)[:, :-1]
-    return F.cross_entropy(logits.flatten(0, 1), ids[:, 1:].flatten())
+    return F.cross_entropy(logits.flatten(0, 1),
+                           ids[:, 1:].flatten().long())

@@ -6,7 +6,7 @@ turns them into a black box.  On a death signal — ``remove_node`` (any
 cause: agent EOF, lease expiry, chaos SIGKILL), ``kill_node``, a gang
 restart, a MeshGroupError handler — the head writes one bundle dir:
 
-    $RAY_TPU_FLIGHT_RECORD_DIR/<millis>_<reason>/
+    $RAY_TPU_TORCH_FLIGHT_RECORD_DIR/<millis>_<reason>/
         meta.json     reason, wall time, trigger details
         spans.json    TraceStore snapshot (incl. the victim's last
                       flushed spans — workers flush at task START, so a
@@ -16,7 +16,7 @@ restart, a MeshGroupError handler — the head writes one bundle dir:
         events.json   the head's recent event log (node joins/deaths)
 
 Disabled unless a directory is configured (``flight_record_dir`` config
-flag / RAY_TPU_FLIGHT_RECORD_DIR env) — chaos suites that don't opt in
+flag / RAY_TPU_TORCH_FLIGHT_RECORD_DIR env) — chaos suites that don't opt in
 pay nothing.  Bundle count is capped (oldest deleted) so a crash loop
 cannot fill a disk.
 
@@ -34,7 +34,7 @@ from typing import Any, Dict, List, Optional
 
 def flight_record_dir() -> Optional[str]:
     """The configured bundle root, or None when recording is off."""
-    path = os.environ.get("RAY_TPU_FLIGHT_RECORD_DIR")
+    path = os.environ.get("RAY_TPU_TORCH_FLIGHT_RECORD_DIR")
     if not path:
         try:
             from ray_tpu_torch._private.config import CONFIG

@@ -3,8 +3,8 @@
 rllib/algorithms/algorithm.py:150 — setup :482, step :744).
 
 The port runs Anakin mode only, on the device ``config.device`` names
-(CUDA when it names none).  Actor mode (ROADMAP, Queue 1 item 5) and
-checkpoints (item 1b, with ``air/checkpoint.py``) are not ported yet.
+(CUDA when it names none).  Actor mode (ROADMAP, Queue 1 item 5) is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.air.checkpoint import Checkpoint
 from ray_tpu_torch.rllib.env.torch_envs import make_torch_env
 
 
@@ -87,14 +88,17 @@ class Algorithm:
 
         return make_greedy_eval_rollout(env, self.module)
 
-    _NO_CHECKPOINTS = ("checkpoints are not ported yet: they wait for "
-                       "air/checkpoint.py (ROADMAP, Queue 1 item 1b)")
+    # ---- checkpointing (Trainable protocol) ----
+    def save_checkpoint(self) -> Checkpoint:
+        """The module's parameters and the iteration, as the reference's
+        Anakin checkpoint holds them (its params and ``iteration``; the
+        optimizer state is not saved)."""
+        return Checkpoint.from_state_dict(
+            self.module.state_dict(), extra={"iteration": self.iteration})
 
-    def save_checkpoint(self):
-        raise NotImplementedError(self._NO_CHECKPOINTS)
-
-    def load_checkpoint(self, checkpoint):
-        raise NotImplementedError(self._NO_CHECKPOINTS)
+    def load_checkpoint(self, checkpoint: Checkpoint):
+        self.module.load_state_dict(checkpoint.to_state_dict())
+        self.iteration = checkpoint.extra().get("iteration", 0)
 
     # ---- shared helpers ----
     def _episode_counter_metrics(self, metrics: Dict[str, Any]

@@ -1,4 +1,19 @@
-"""Training of the port (counterpart of ``ray_tpu/train``): the one-GPU
-step helpers so far; the Train stack (trainers over worker actors, the
-session, dataset shards, device prefetch) follows with the runtime."""
-from ray_tpu_torch.train.torch import adamw, make_train_step  # noqa: F401
+"""Distributed training of the port (counterpart of ``ray_tpu/train``;
+reference: python/ray/train/): the trainers over a gang of worker actors,
+the backend executor, and the one-GPU step helpers."""
+from ray_tpu_torch.train.backend import Backend, BackendConfig, TestConfig  # noqa: F401
+from ray_tpu_torch.train.base_trainer import (  # noqa: F401
+    BaseTrainer,
+    DataParallelTrainer,
+)
+from ray_tpu_torch.train.torch import (  # noqa: F401
+    TorchConfig,
+    TorchTrainer,
+    adamw,
+    make_train_step,
+)
+from ray_tpu_torch.train._internal.backend_executor import (  # noqa: F401
+    BackendExecutor,
+    TrainingWorkerError,
+)
+from ray_tpu_torch.train._internal.worker_group import WorkerGroup  # noqa: F401

@@ -5,6 +5,13 @@
 (``optax.adamw(3e-4)``), with optax's defaults; ``make_train_step`` is the
 counterpart of ``compile_donated_step``.  Nothing here picks a device:
 the step runs where the model's parameters are.
+``prepare_device_iterator`` is the Train loop's ingest: host batches
+moved to the device on a background thread (``data.prefetch``).
+
+The helpers that shard over a mesh of several workers' devices
+(``get_mesh``, ``prepare_train_state``, ``prepare_batch``,
+``compile_zero_step``) and ``prepare_model`` in a gang of more than one
+worker raise: data parallelism is ROADMAP Queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -55,3 +62,49 @@ def make_train_step(model: torch.nn.Module,
         return loss.detach()
 
     return step
+
+
+_DATA_PARALLEL = ("is data parallelism, which is not ported yet (ROADMAP, "
+                  "Queue 1 item 6)")
+
+
+def get_mesh(spec=None):
+    raise NotImplementedError(f"get_mesh {_DATA_PARALLEL}")
+
+
+def prepare_train_state(params, mesh, annotations=None, rules=None):
+    raise NotImplementedError(f"prepare_train_state {_DATA_PARALLEL}")
+
+
+def prepare_batch(batch, mesh):
+    raise NotImplementedError(f"prepare_batch {_DATA_PARALLEL}")
+
+
+def compile_zero_step(grad_fn, tx, params, mesh=None, *,
+                      zero_sharding: str = "opt+grads", **kwargs):
+    raise NotImplementedError(
+        f"compile_zero_step (zero_sharding={zero_sharding!r}) "
+        f"{_DATA_PARALLEL}")
+
+
+def prepare_model(model: torch.nn.Module) -> torch.nn.Module:
+    """The model as this worker trains it (reference: prepare_model's DDP
+    wrap).  In a gang of one worker that is the model itself; wrapping it
+    for gradient synchronisation across several workers raises."""
+    from ray_tpu_torch.air import session
+
+    if session.get_world_size() > 1:
+        raise NotImplementedError(
+            f"prepare_model in a gang of {session.get_world_size()} "
+            f"workers (a DDP wrap) {_DATA_PARALLEL}")
+    return model
+
+
+def prepare_device_iterator(host_batches, device=None, prefetch: int = 2):
+    """Wrap any iterable of host batches (dicts of numpy arrays) in the
+    background device prefetcher (``data.prefetch.DevicePrefetcher``),
+    the same machinery as ``Dataset.iter_device_batches``; ``device``
+    None means CUDA."""
+    from ray_tpu_torch.data.prefetch import DevicePrefetcher
+
+    return DevicePrefetcher(host_batches, device=device, prefetch=prefetch)

@@ -9,7 +9,7 @@ no-op tracer makes every span free.
 
 Surface:
 - ``enable_tracing()`` / ``tracing_enabled()`` — process-local switch
-  (also on via the ``tracing_enabled`` config flag / RAY_TPU_TRACING_ENABLED).
+  (also on via the ``tracing_enabled`` config flag / RAY_TPU_TORCH_TRACING_ENABLED).
 - ``span(name, **attrs)`` — context manager used at the runtime's
   instrumentation points (task submit, task execute, actor calls).
   Each span joins the active distributed trace context

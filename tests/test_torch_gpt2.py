@@ -146,3 +146,23 @@ def test_converter_covers_every_parameter(fp32_pair):
             want))), name
     with pytest.raises(KeyError):
         gpt2_params_from_jax({"lm_head": {"kernel": np.zeros((2, 2))}})
+
+
+def test_int32_and_int64_ids_give_the_jax_loss(fp32_pair):
+    """``bench.py`` feeds int32 tokens; ``F.cross_entropy`` takes int64
+    targets only, so the port's loss casts its labels.  int32 and int64
+    ids give one loss, equal to ``ray_tpu.models.gpt2.gpt2_loss_fn``'s on
+    the same int32 ids (fp32: summation order only, as above)."""
+    from ray_tpu.models.gpt2 import gpt2_loss_fn as jax_loss_fn
+    from ray_tpu_torch.models import gpt2_loss_fn
+
+    jmodel, params, tmodel = fp32_pair
+    ids = np.random.default_rng(5).integers(0, 512, (2, 24), dtype=np.int32)
+    want = float(jax_loss_fn(params, jmodel.apply,
+                             {"input_ids": jnp.asarray(ids)}))
+    with torch.no_grad():
+        got32 = gpt2_loss_fn(tmodel, {"input_ids": torch.from_numpy(ids)})
+        got64 = gpt2_loss_fn(tmodel, {"input_ids": torch.from_numpy(
+            ids.astype(np.int64))})
+    assert got32.item() == got64.item()
+    np.testing.assert_allclose(got32.item(), want, rtol=RTOL)

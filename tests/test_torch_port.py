@@ -156,15 +156,43 @@ def test_later_slices_raise_naming_them(call, match):
         call(rllib).resources(device="cpu").build()
 
 
-@pytest.mark.parametrize("method", ["save_checkpoint", "load_checkpoint"])
-def test_checkpoints_raise_naming_their_slice(method):
-    from ray_tpu_torch.rllib import IMPALAConfig
+# An environment name of the JAX package in a string: ``RAY_TPU_`` not
+# followed by ``TORCH_``, or ``RTPU_`` (the port's are ``RAY_TPU_TORCH_``
+# and ``RTTP_``).
+_JAX_ENV_NAME = re.compile(r"RAY_TPU_(?!TORCH_)|RTPU_")
 
-    algo = IMPALAConfig().anakin(num_envs=4, unroll_length=4).resources(
-        device="cpu").build()
-    args = () if method == "save_checkpoint" else (None,)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1b"):
-        getattr(algo, method)(*args)
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_reads_only_its_own_environment_names(path):
+    """A knob set for one package's cluster must not configure the
+    other's: the port reads ``RAY_TPU_TORCH_*`` and ``RTTP_*`` names
+    only, docstrings and comments included."""
+    bad = [(n, line.strip()) for n, line in
+           enumerate(path.read_text().splitlines(), 1)
+           if _JAX_ENV_NAME.search(line)]
+    assert not bad, f"{path.relative_to(ROOT)} names {bad}"
+
+
+def test_each_packages_knob_leaves_the_others_config(monkeypatch):
+    from ray_tpu._private.config import CONFIG as jax_config
+    from ray_tpu_torch._private.config import CONFIG as port_config
+
+    def read():
+        jax_config.reset()
+        port_config.reset()
+        return jax_config.zero_sharding, port_config.zero_sharding
+
+    try:
+        assert read() == ("off", "off")
+        monkeypatch.setenv("RAY_TPU_ZERO_SHARDING", "opt+grads")
+        assert read() == ("opt+grads", "off")
+        monkeypatch.delenv("RAY_TPU_ZERO_SHARDING")
+        monkeypatch.setenv("RAY_TPU_TORCH_ZERO_SHARDING", "opt")
+        assert read() == ("off", "opt")
+    finally:
+        monkeypatch.undo()
+        read()
 
 
 def test_chip_smokes_remote_code_pickles_by_value():
@@ -179,7 +207,8 @@ def test_chip_smokes_remote_code_pickles_by_value():
     cloudpickle.register_pickle_by_value(chip_smoke)
     try:
         for obj in (chip_smoke.GPUActor, chip_smoke.TrainActor,
-                    chip_smoke.cpu_task_view, chip_smoke.train_steps):
+                    chip_smoke.cpu_task_view, chip_smoke.train_steps,
+                    chip_smoke.trainer_loop):
             assert cloudpickle.loads(cloudpickle.dumps(obj)).__name__ == \
                 obj.__name__
     finally:
