@@ -44,7 +44,15 @@ three main paths with random weights from a seed:
   ``data.from_numpy``, the batches through ``get_dataset_shard`` ->
   ``iter_device_batches``; 12 launches of each kernel a step in the
   worker, and at 1k the losses bit for bit those of the same steps on the
-  same batches in this process);
+  same batches in this process), then actor-mode RL: ``[ppo-actor]``
+  (``bench_ppo_real_env``'s configuration on CartPole-v1: 2 CPU rollout
+  actors x 8 envs x 256 steps, the streaming sampler with 2 fragments in
+  flight a worker, the learner on the card; trained to reward 100, then
+  streaming and lockstep env-steps/s, the stream's readings, the SGD and
+  publish times; only this process holds the card; the checkpoint round
+  trip) and ``[impala-actor]`` (IMPALA, then APPO, 2 x 4 x 32 for 20
+  iterations: finite losses, every env step, the weight lag within the
+  staleness bound);
 - training: GPT-2 small steps (bf16 compute over fp32 parameters,
   ``adamw(3e-4)``, ``make_train_step``) at the JAX bench's two shapes,
   B=16 x S=1024 and B=4 x S=4096, every layer running the forward with
@@ -130,7 +138,13 @@ from ray_tpu_torch.rllib import (
     PPOConfig,
     RLModuleSpec,
 )
+from ray_tpu_torch.rllib.env.py_envs import PyCartPole, VectorEnv
 from ray_tpu_torch.rllib.env.torch_envs import Breakout84, make_torch_env
+from ray_tpu_torch.rllib.evaluation.worker_set import (
+    FragmentBuffers,
+    collect_fragment,
+    fragment_batch,
+)
 from ray_tpu_torch.models.convert import layerskip_draft
 from ray_tpu_torch.serve import (
     LLMEngine,
@@ -1778,6 +1792,330 @@ def phase_trainer(card, train, actor_rates) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Actor-mode RL on the same cluster: [ppo-actor], [impala-actor]
+# ---------------------------------------------------------------------------
+# [ppo-actor]: bench.py::bench_ppo_real_env (:1169-1234) with one change:
+# the env is the port's native CartPole-v1 (numpy) in place of gymnasium's
+# LunarLander-v3, which the card's machine does not have.  2 CPU rollout
+# actors x 8 envs x 256 steps, the streaming sampler with 2 fragments in
+# flight a worker, env stepping in subprocesses where the host has >= 4
+# cores; the learner on the card.  The gate is _learn_to_floor's with
+# tests/test_rllib_actor_path.py's CartPole floor of 100: the CURRENT
+# episode_reward_mean >= 100 at an iteration >= 10, within 60.  Then 6
+# timed iterations (_measure_steps_per_s), and a lockstep leg of the same
+# settings (sample_streaming=False), timed the same way.
+PPO_ACTOR_ROLLOUTS = {"num_rollout_workers": 2, "num_envs_per_worker": 8,
+                      "rollout_fragment_length": 256,
+                      "sample_streaming": True,
+                      "max_in_flight_per_worker": 2,
+                      "env_parallelism": "auto"}
+PPO_ACTOR_TRAINING = {"lr": 3e-4, "num_sgd_iter": 6,
+                      "sgd_minibatch_size": 512, "entropy_coeff": 0.01,
+                      "gamma": 0.999}
+PPO_ACTOR_FLOOR, PPO_ACTOR_MAX_ITERS, PPO_ACTOR_TIMED_ITERS = 100.0, 60, 6
+# [impala-actor]: tests/test_rllib_actor_path.py:62-75's configuration (2
+# workers x 4 envs x 32 steps, lr 5e-4) for 20 iterations, then APPO at
+# the same size; no reward floor (the JAX package sets none).
+IMPALA_ACTOR_ROLLOUTS = {"num_rollout_workers": 2, "num_envs_per_worker": 4,
+                         "rollout_fragment_length": 32}
+IMPALA_ACTOR_ITERS = 20
+
+
+def ppo_actor_algo(streaming: bool):
+    return (PPOConfig().environment("CartPole-v1")
+            .rollouts(**{**PPO_ACTOR_ROLLOUTS,
+                         "sample_streaming": streaming})
+            .training(**PPO_ACTOR_TRAINING).debugging(seed=SEED).build())
+
+
+def timed_actor_iterations(algo, iters) -> dict:
+    """``iters`` iterations of an actor-mode PPO by the host clock, with a
+    CUDA event and a host time at each phase the step marks: env-steps/s,
+    the SGD epochs' device time an iteration (CUDA events from the batch's
+    concatenation to the metrics' read, which ends them) and the weights'
+    publish (``get_weights`` and the put, with the lockstep sync's wait
+    for the workers) by the host clock."""
+    marks = []
+
+    def mark(name):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append((name, event, time.perf_counter()))
+
+    algo.on_phase = mark
+    steps = 0
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        metrics = algo.train()
+        if not np.isfinite(metrics["total_loss"]):
+            raise AssertionError(f"timed actor iteration: {metrics}")
+        steps += metrics["num_env_steps_sampled_this_iter"]
+    seconds = time.perf_counter() - t0
+    algo.on_phase = None
+    torch.cuda.synchronize()
+    names = ("start", "sample", "sgd", "publish")
+    if [n for n, _, _ in marks] != list(names) * iters:
+        raise AssertionError(f"phase marks {[n for n, _, _ in marks]}")
+    rows = [marks[i:i + 4] for i in range(0, len(marks), 4)]
+    return {"seconds": seconds, "metrics": metrics,
+            "steps_per_s": steps / seconds,
+            "sample_ms": float(np.mean([(r[1][2] - r[0][2]) * 1e3
+                                        for r in rows])),
+            "sgd_ms": float(np.mean([r[1][1].elapsed_time(r[2][1])
+                                     for r in rows])),
+            "publish_ms": float(np.mean([(r[3][2] - r[2][2]) * 1e3
+                                         for r in rows]))}
+
+
+def child_pids(parents) -> set:
+    """The processes whose parent is one of ``parents``."""
+    out = set()
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, IndexError, ValueError):
+                continue
+            if ppid in parents:
+                out.add(int(entry))
+    return out
+
+
+def holds_the_card(pid) -> bool:
+    """Whether the process maps the card's device files, which a CUDA
+    context (and nothing before it: not ``import torch``) does."""
+    try:
+        with open(f"/proc/{pid}/maps") as maps:
+            return any("/dev/nvidia" in line for line in maps)
+    except OSError:
+        return False
+
+
+def card_holders(algo) -> dict:
+    """Which of this process, the rollout workers and their env
+    subprocesses hold a CUDA context (``/proc/<pid>/maps``), and, as a
+    reading only, the card's compute processes as ``nvidia-smi`` lists
+    them: it lists the PIDs of its own namespace, which a container's are
+    not, so they are never compared with the workers'."""
+    workers = set(ray_tpu_torch.get(
+        [w.pid.remote() for w in algo.workers.workers], timeout=GET_S))
+    envs = child_pids(workers)
+    listed = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.split()
+    return {"driver": os.getpid(), "workers": sorted(workers),
+            "env_processes": len(envs),
+            "holders": sorted(p for p in {os.getpid()} | workers | envs
+                              if holds_the_card(p)),
+            "nvidia_smi": sorted(int(p) for p in listed)}
+
+
+def serial_fragment_ms(reps=3) -> float:
+    """One fragment's compute in this process, on one CPU thread: 256
+    steps of 8 CartPoles stepped serially under a CPU policy, then GAE
+    (what a rollout worker does, without its env subprocesses' round trips
+    and the actor's messages)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    env = VectorEnv(lambda: PyCartPole(), 8, SEED)
+    module = RLModuleSpec(obs_dim=4, num_actions=2).build()
+    gen = torch.Generator().manual_seed(SEED)
+    bufs = FragmentBuffers(PPO_ACTOR_ROLLOUTS["rollout_fragment_length"])
+
+    def act(obs, g):
+        a, logp, v = module.forward_exploration(torch.from_numpy(obs), g)
+        return a.numpy(), logp.numpy(), v.numpy()
+
+    obs = env.reset_all().astype(np.float32)
+    ep, done = np.zeros(8), []
+    times = []
+    with torch.inference_mode():
+        for _ in range(reps + 1):
+            t0 = time.perf_counter()
+            obs, cols = collect_fragment(env, act, obs, bufs.T, gen, ep,
+                                         done, bufs=bufs,
+                                         cast=lambda o: o.astype(np.float32))
+            fragment_batch("gae", cols, module(torch.from_numpy(obs))[1]
+                           .numpy(), 0.999, 0.95)
+            times.append((time.perf_counter() - t0) * 1e3)
+    env.close()
+    torch.set_num_threads(threads)
+    return float(np.mean(times[1:]))
+
+
+def phase_ppo_actor(card) -> dict:
+    """Actor-mode PPO at bench_ppo_real_env's settings on CartPole-v1:
+    the learner's parameters on the card; trained to the gate; 6 timed
+    iterations (env-steps/s, the stream's readings, SGD and publish
+    times); only this process holds the card; a lockstep leg timed the
+    same way; the checkpoint round trip into the lockstep algorithm."""
+    zero_launches()
+    algo = ppo_actor_algo(streaming=True)
+    on_card = {p.device.type for p in algo.learner.module.parameters()}
+    if on_card != {"cuda"}:
+        raise AssertionError(f"[ppo-actor] learner parameters on {on_card}")
+    gate = learn_to_floor(algo, "ppo-actor", PPO_ACTOR_FLOOR,
+                          PPO_ACTOR_MAX_ITERS)
+    if gate["met_at"] is None:
+        raise AssertionError(f"[ppo-actor] the gate {PPO_ACTOR_FLOOR} was "
+                             f"not met within {PPO_ACTOR_MAX_ITERS}: {gate}")
+    stream = timed_actor_iterations(algo, PPO_ACTOR_TIMED_ITERS)
+    st = algo._stream.stats()
+    # A worker's busy time a fragment (every fragment that came back,
+    # stale ones included), and one minibatch update profiled.
+    busy_ms = algo._stream._busy_s / max(
+        1, st["fragments_consumed"] + st["stale_dropped"]) * 1e3
+    minibatch = {k: v[:PPO_ACTOR_TRAINING["sgd_minibatch_size"]]
+                 for k, v in algo._train_buf.items()}
+    update = profile_device(lambda: algo.learner.update(minibatch))
+    holders = card_holders(algo)
+    if holders["holders"] != [os.getpid()] or \
+            holders["env_processes"] < 1:
+        raise AssertionError(f"[ppo-actor] card holders {holders}")
+    ckpt = algo.save_checkpoint()
+    saved = algo.learner.get_weights()
+    algo.stop()
+    del algo
+    lock = ppo_actor_algo(streaming=False)
+    try:
+        lock.train()  # warm-up, as the streaming leg's gate had
+        lockstep = timed_actor_iterations(lock, PPO_ACTOR_TIMED_ITERS)
+        # Rounds of one fragment a worker, called directly: the round's
+        # wall time against the slower worker's busy time.
+        rounds = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            infos = ray_tpu_torch.get([w.sample_fragment.remote("gae")
+                                       for w in lock.workers.workers],
+                                      timeout=GET_S)
+            rounds.append(((time.perf_counter() - t0) * 1e3,
+                           max(i["busy_s"] for _, _, i in infos) * 1e3))
+        version = lock.workers.weights_version
+        lock.load_checkpoint(ckpt)
+        loaded = lock.learner.get_weights()
+        bitwise = all(same_bits(saved[k], loaded[k]) for k in saved)
+        infos = ray_tpu_torch.get([w.sample_fragment.remote("gae")
+                                   for w in lock.workers.workers],
+                                  timeout=GET_S)
+        versions = [info["weights_version"] for _, _, info in infos]
+    finally:
+        lock.stop()
+    if not bitwise or versions != [version + 1] * len(versions):
+        raise AssertionError(f"[ppo-actor] checkpoint round trip: bitwise "
+                             f"{bitwise}, versions {versions} after "
+                             f"{version}")
+    numbers = {"gate_iteration": gate["met_at"], "gate_reward":
+               gate["reward"], "env_steps_per_s": stream["steps_per_s"],
+               "lockstep_env_steps_per_s": lockstep["steps_per_s"],
+               "sgd_ms": stream["sgd_ms"],
+               "lockstep_sgd_ms": lockstep["sgd_ms"],
+               "publish_ms": stream["publish_ms"],
+               "lockstep_publish_ms": lockstep["publish_ms"],
+               "sample_ms": stream["sample_ms"],
+               "lockstep_sample_ms": lockstep["sample_ms"],
+               "worker_idle_frac": st["worker_idle_frac"],
+               "weight_lag_mean": st["weight_lag_mean"],
+               "weight_lag_max": st["weight_lag_max"],
+               "fragments_per_s": st["fragments_per_s"],
+               "stale_dropped": st["stale_dropped"],
+               "gate_s": gate["seconds"], "fragment_busy_ms": busy_ms,
+               "round_ms": float(np.mean([r[0] for r in rounds])),
+               "round_busy_ms": float(np.mean([r[1] for r in rounds])),
+               "serial_fragment_ms": serial_fragment_ms(),
+               "update_launch_calls": update["launch_calls"],
+               "update_device_ms": update["device_ms"],
+               "update_wall_ms": update["wall_ms"],
+               "card_holders": len(holders["holders"]),
+               "nvidia_smi_listed": len(holders["nvidia_smi"])}
+    note("ppo-actor", **numbers)
+    log(f"[ppo-actor] {card} | PPO in actor mode, CartPole-v1: 2 CPU "
+        f"rollout actors x 8 envs x 256 steps ({holders['env_processes']} "
+        f"child processes of the workers step the envs), the learner on the card "
+        f"(fp32, 6 epochs x 8 minibatches of 512 an iteration): gate reward "
+        f"{gate['reward']:.2f} >= {PPO_ACTOR_FLOOR} at iteration "
+        f"{gate['met_at']} ({gate['seconds']:.1f} s); streaming "
+        f"{stream['steps_per_s']:.0f} env-steps/s ({stream['seconds'] / PPO_ACTOR_TIMED_ITERS * 1e3:.1f} ms an iteration: "
+        f"waiting for fragments {stream['sample_ms']:.1f} ms, SGD "
+        f"{stream['sgd_ms']:.1f} ms by CUDA events, publish "
+        f"{stream['publish_ms']:.2f} ms), lockstep "
+        f"{lockstep['steps_per_s']:.0f} env-steps/s (sample "
+        f"{lockstep['sample_ms']:.1f} ms, SGD {lockstep['sgd_ms']:.1f} ms, "
+        f"publish + sync {lockstep['publish_ms']:.2f} ms); stream: worker "
+        f"idle {st['worker_idle_frac']:.4f}, weight lag mean "
+        f"{st['weight_lag_mean']:.3f} max {st['weight_lag_max']}, "
+        f"{st['fragments_per_s']:.2f} fragments/s, {st['stale_dropped']} "
+        f"stale dropped; a worker busy {busy_ms:.1f} ms a fragment; "
+        f"lockstep rounds of one fragment a worker called directly "
+        f"{numbers['round_ms']:.1f} ms (the slower worker busy "
+        f"{numbers['round_busy_ms']:.1f}); the same fragment's compute in "
+        f"this process with serial envs {numbers['serial_fragment_ms']:.1f}"
+        f" ms; one minibatch update: {update['launch_calls']} launch "
+        f"calls, {update['device_ops']} device ops, "
+        f"{update['device_ms']:.2f} ms on the card of "
+        f"{update['wall_ms']:.2f} ms (profiled); card held by "
+        f"{holders['holders']} (this process "
+        f"{holders['driver']}; workers {holders['workers']}; nvidia-smi, "
+        f"in its own PID namespace, lists {holders['nvidia_smi']}); "
+        f"checkpoint round trip bitwise "
+        f"{bitwise}, next fragments at version {versions}; flash launches "
+        f"{dict(attn.LAUNCHES)}")
+    if any(attn.LAUNCHES.values()):
+        raise AssertionError(f"[ppo-actor] launched {attn.LAUNCHES}")
+    return {"flash": dict(attn.LAUNCHES)}
+
+
+def phase_impala_actor(card) -> dict:
+    """IMPALA, then APPO, in actor mode at the JAX package's test size:
+    finite losses, every env step counted, the weight lag within the
+    staleness bound."""
+    zero_launches()
+    out = {}
+    for name, config_cls in (("IMPALA", IMPALAConfig),
+                             ("APPO", APPOConfig)):
+        algo = (config_cls().environment("CartPole-v1")
+                .rollouts(**IMPALA_ACTOR_ROLLOUTS).training(lr=5e-4)
+                .debugging(seed=SEED).build())
+        try:
+            # The first iteration waits for the workers to start.
+            t0 = time.perf_counter()
+            first = algo.train()
+            t1 = time.perf_counter()
+            for _ in range(IMPALA_ACTOR_ITERS - 1):
+                m = algo.train()
+            seconds = time.perf_counter() - t1
+            bound = algo.config.max_weight_staleness
+        finally:
+            algo.stop()
+        want = IMPALA_ACTOR_ITERS * 2 * 4 * 32
+        if not (np.isfinite(m["total_loss"])
+                and m["num_env_steps_sampled"] >= want
+                and m["rollout_weight_lag_max"] <= bound):
+            raise AssertionError(f"[impala-actor] {name}: {m}")
+        out[name] = {"env_steps_per_s": (m["num_env_steps_sampled"] - first[
+            "num_env_steps_sampled"]) / seconds, "first_s": t1 - t0,
+            "reward": m["episode_reward_mean"]}
+        note(f"{name.lower()}-actor", **out[name],
+             weight_lag_max=m["rollout_weight_lag_max"])
+        log(f"[impala-actor] {card} | {name} in actor mode, CartPole-v1: 2 "
+            f"CPU rollout actors x 4 envs x 32 steps, one V-trace update a "
+            f"fragment on the card: the first iteration (the workers' "
+            f"start) {out[name]['first_s']:.2f} s, then "
+            f"{IMPALA_ACTOR_ITERS - 1} in {seconds:.2f} s, "
+            f"{out[name]['env_steps_per_s']:.0f} env-steps/s; "
+            f"{m['num_env_steps_sampled']} env steps (>= {want}); reward"
+            f" {m['episode_reward_mean']:.2f}; total loss "
+            f"{m['total_loss']:.4f}; weight lag mean "
+            f"{m['rollout_weight_lag_mean']:.3f} max "
+            f"{m['rollout_weight_lag_max']} (bound {bound}); "
+            f"{m['rollout_stale_dropped']} stale dropped")
+    log(f"[impala-actor] flash launches {dict(attn.LAUNCHES)}")
+    if any(attn.LAUNCHES.values()):
+        raise AssertionError(f"[impala-actor] launched {attn.LAUNCHES}")
+    return {"flash": dict(attn.LAUNCHES)}
+
+
 def train_steps(b, length, iters, seed=SEED, batches=None) -> dict:
     """GPT-2 small steps at B x S: bf16 compute over fp32 parameters,
     adamw(3e-4), on the ids ``batches`` yields (tensors on the card), or
@@ -2996,7 +3334,7 @@ def main():
                                     serve_model)
     serving.update(launches)
     # The runtime's phases share one cluster on this machine (its workers
-    # are subprocesses), up from [runtime] to [trainer]: [actor-train]
+    # are subprocesses), up from [runtime] to [impala-actor]: [actor-train]
     # needs [train]'s losses, [trainer] [train]'s and [actor-train]'s
     # rates; [swap] runs after [swap-ref] because it perturbs the serving
     # model's weights.
@@ -3013,6 +3351,10 @@ def main():
         actor_train, actor_rates = timed("actor-train", phase_actor_train,
                                          card, train)
         trainer = timed("trainer", phase_trainer, card, train, actor_rates)
+        actor_rl = {"ppo-actor": timed("ppo-actor", phase_ppo_actor,
+                                       card)["flash"],
+                    "impala-actor": timed("impala-actor", phase_impala_actor,
+                                          card)["flash"]}
     finally:
         ray_tpu_torch.shutdown()
     timed("train-fp32", phase_train_fp32)
@@ -3049,7 +3391,7 @@ def main():
     by_path = {"serve": {"flash_fwd": serve_launches}, **serving,
                **{f"train {tag}": run["launches"]
                   for tag, run in train.items()},
-               **actor_train, **trainer,
+               **actor_train, **trainer, **actor_rl,
                **llama, "ppo": ppo["flash"], **rl}
     # dq's and dkv's top-level fields are those of the first training
     # shape; the forward's are the serving shape's.

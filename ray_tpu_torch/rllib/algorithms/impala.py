@@ -8,13 +8,18 @@ dissolves: a train step samples ``T`` steps of ``N`` envs with the current
 policy (``ppo.anakin_rollout``), takes the target policy's log-probability
 and value of all ``T * N`` frames in one forward, corrects them with
 V-trace and applies one clip + Adam update.  An iteration reads the host
-once, for its metrics.  Actor mode (CPU rollout workers feeding the
-learner) is not ported yet (ROADMAP, Queue 1 item 5).
+once, for its metrics.
+
+Actor mode (``rollouts(num_rollout_workers=...)``): CPU rollout workers
+stream time-major fragments through a ``SampleStream`` (fragments in
+flight, versioned weights, the staleness gate) to a ``TorchLearner`` on
+the device, which takes one V-trace update a fragment and publishes its
+weights every ``broadcast_interval`` updates.
 """
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -85,6 +90,20 @@ def impala_loss(module, batch, *, gamma, clip_rho, clip_c, vf_loss_coeff,
                             entropy_coeff=entropy_coeff)
 
 
+def time_major_loss(objective: Callable, *, gamma, clip_rho, clip_c
+                    ) -> Callable:
+    """``loss(module, batch)`` on one time-major batch (``impala_loss``'s):
+    the target policy's forward, V-trace, then ``objective`` (IMPALA's or
+    APPO's).  The actor-mode learner's loss."""
+    def loss(module, batch):
+        logp, value, entropy = time_major_forward(module, batch)
+        vs, pg_adv = vtrace_targets(logp, value, batch, gamma=gamma,
+                                    clip_rho=clip_rho, clip_c=clip_c)
+        return objective(logp, value, entropy, vs, pg_adv, batch)
+
+    return loss
+
+
 def make_anakin_impala(config: AlgorithmConfig, device: torch.device,
                        objective: Callable):
     """Builds the initial ``AnakinState`` and the train step ``step(state,
@@ -153,3 +172,44 @@ class IMPALA(Algorithm):
         self._anakin_state, self._train_step, self._steps_per_iter = \
             make_anakin_impala(self.config, self.device, self._make_loss())
         self.module = self._anakin_state.module
+
+    # ---- actor mode ----
+    def _setup_actor_mode(self):
+        c = self.config
+        self._setup_learner_and_workers(time_major_loss(
+            self._make_loss(), gamma=c.gamma, clip_rho=c.vtrace_clip_rho,
+            clip_c=c.vtrace_clip_c))
+        # V-trace's behaviour/target correction absorbs staleness, so the
+        # gate here is a safety bound, not a correctness requirement.
+        self._start_stream("timemajor")
+        self._updates_since_broadcast = 0
+
+    def _training_step_actor(self) -> Dict[str, Any]:
+        from ray_tpu_torch.rllib.core.learner import metrics_to_host
+
+        mark = self.on_phase or (lambda name: None)
+        mark("start")
+        metrics: Dict[str, Any] = {}
+        ep_returns = []
+        target_updates = max(1, len(self.workers.workers))
+        updates = steps = 0
+        while updates < target_updates:
+            frag = self._stream.next_fragment(timeout=120.0)
+            if frag is None:
+                break
+            ep_returns.extend(frag.episode_returns)
+            metrics = self.learner.update(frag.batch)
+            updates += 1
+            steps += frag.env_steps
+            self._updates_since_broadcast += 1
+            if self._updates_since_broadcast >= \
+                    self.config.broadcast_interval:
+                self._stream.publish_weights(self.learner.get_weights())
+                self._updates_since_broadcast = 0
+        metrics = metrics_to_host(metrics)
+        mark("update")
+        metrics["episode_reward_mean"] = self._episode_reward_mean(
+            ep_returns)
+        metrics["num_env_steps_sampled_this_iter"] = steps
+        metrics.update(self._stream_metrics())
+        return metrics

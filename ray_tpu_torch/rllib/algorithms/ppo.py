@@ -10,8 +10,16 @@ the port runs it eagerly, one launch per operation.
 
 The recurrent and attention policies (``use_lstm``, ``use_attention``)
 are built by ``ppo_rnn.py`` and ``ppo_attn.py``; IMPALA/APPO reuse the
-rollout and ``AnakinState`` below.  Not ported yet: actor mode (ROADMAP,
-Queue 1 item 5), checkpoints (item 1b), more than one device (item 6).
+rollout and ``AnakinState`` below.
+
+Actor mode (``rollouts(num_rollout_workers=...)``): CPU rollout workers
+sample fragments with GAE columns, and a ``TorchLearner`` on the device
+runs the shuffled minibatch epochs, in lockstep (sample, train, blocking
+weight sync) or streaming (``SampleStream``: fragments in flight while the
+learner trains, weights published asynchronously).  Its minibatch shuffles
+draw from a numpy generator seeded with ``config.seed``, so that a
+lockstep run repeats itself (the JAX package shuffles unseeded).  Not
+ported yet: more than one device (ROADMAP, Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import dataclasses
 import functools
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, make_env
@@ -295,3 +304,88 @@ class PPO(Algorithm):
             return make_attn_eval_rollout(env, self.module,
                                           c.attention_window)
         return super()._make_eval_rollout(env)
+
+    # ---- actor mode ----
+    def _setup_actor_mode(self):
+        c = self.config
+        if c.use_lstm or c.use_attention:
+            # Silently training a memoryless MLP on a memory task is the
+            # worst failure mode — refuse loudly instead.
+            raise NotImplementedError(
+                "use_lstm/use_attention policies run in anakin mode only; "
+                "the actor-path sampling stack is feedforward")
+        self._setup_learner_and_workers(functools.partial(
+            ppo_loss, clip_param=c.clip_param,
+            vf_clip_param=c.vf_clip_param, vf_loss_coeff=c.vf_loss_coeff,
+            entropy_coeff=c.entropy_coeff))
+        self._shuffle_rng = np.random.default_rng(c.seed)
+        self._stream = None
+        if c.sample_streaming:
+            self._start_stream("gae")
+        else:
+            self.workers.sync_weights(self.learner.get_weights())
+
+    def _run_ppo_epochs(self, train_batch) -> Dict[str, Any]:
+        """The shared SGD half of both actor paths: advantage
+        normalization + shuffled minibatch epochs on the learner; one
+        device read for the last minibatch's metrics."""
+        from ray_tpu_torch.rllib.core.learner import metrics_to_host
+
+        adv = train_batch["advantages"]
+        train_batch["advantages"] = (adv - adv.mean()) / (adv.std() + 1e-8)
+        metrics: Dict[str, Any] = {}
+        for _ in range(self.config.num_sgd_iter):
+            shuffled = train_batch.shuffle(
+                int(self._shuffle_rng.integers(2 ** 31)))
+            for mb in shuffled.minibatches(
+                    min(self.config.sgd_minibatch_size, len(shuffled))):
+                metrics = self.learner.update(mb)
+        return metrics_to_host(metrics)
+
+    def _training_step_actor(self) -> Dict[str, Any]:
+        from ray_tpu_torch.exceptions import RayTpuError
+        from ray_tpu_torch.rllib.policy.sample_batch import SampleBatch
+
+        mark = self.on_phase or (lambda name: None)
+        mark("start")
+        if self._stream is None:
+            # Lockstep path (sample_streaming=False): barrier sample ->
+            # train -> blocking weight sync.
+            batches, ep_returns = self.workers.sample_sync()
+            train_batch = SampleBatch.concat_samples(batches)
+            mark("sample")
+            metrics = self._run_ppo_epochs(train_batch)
+            mark("sgd")
+            self.workers.sync_weights(self.learner.get_weights())
+            mark("publish")
+        else:
+            # Streaming path: consume one fragment per worker slot as
+            # they land — while the SGD epochs below run, every worker
+            # still holds queued fragment work, and the new weights
+            # broadcast asynchronously.
+            target = max(1, self.config.num_rollout_workers)
+            batches, ep_returns = [], []
+            for _ in range(target):
+                frag = self._stream.next_fragment(timeout=120.0)
+                if frag is None:
+                    break
+                batches.append(frag.batch)
+                ep_returns.extend(frag.episode_returns)
+            if not batches:
+                raise RayTpuError(
+                    "rollout stream produced no fragments within timeout")
+            # Reuse last iteration's concat buffer (the learner consumed
+            # it during the previous SGD epochs).
+            train_batch = SampleBatch.concat_samples_into(
+                batches, getattr(self, "_train_buf", None))
+            self._train_buf = train_batch
+            mark("sample")
+            metrics = self._run_ppo_epochs(train_batch)
+            mark("sgd")
+            self._stream.publish_weights(self.learner.get_weights())
+            mark("publish")
+            metrics.update(self._stream_metrics())
+        metrics["episode_reward_mean"] = self._episode_reward_mean(
+            ep_returns)
+        metrics["num_env_steps_sampled_this_iter"] = len(train_batch)
+        return metrics

@@ -36,6 +36,22 @@ def setup_data_mesh(config, num_envs: int) -> int:
     return 1
 
 
+def reject_data_mesh(config, path: str) -> None:
+    """A path with no data-parallel step refuses ``num_devices`` (and the
+    knobs that ride that step) loudly: running on one device while the
+    user believes the step is N-way data-parallel is the worst failure."""
+    if getattr(config, "num_devices", None) is not None:
+        raise NotImplementedError(
+            f"resources(num_devices=...) is not implemented for {path}: "
+            "no data-parallel learner yet (ROADMAP, Queue 1 item 6)")
+    if getattr(config, "zero_sharding", "off") != "off" or \
+            getattr(config, "quantized_collectives", "off") != "off":
+        raise NotImplementedError(
+            f"zero_sharding/quantized_collectives are not implemented for "
+            f"{path}: they ride the data-parallel learner (ROADMAP, Queue 1 "
+            f"item 6)")
+
+
 def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float
                         ) -> List[torch.Tensor]:
     """``optax.clip_by_global_norm``: the gradients as they are when their

@@ -142,10 +142,10 @@ def test_engine_refuses_a_model_on_another_device():
 
 
 @pytest.mark.parametrize("call,match", [
-    (lambda rl: rl.IMPALAConfig().rollouts(num_rollout_workers=2),
-     "Queue 1 item 5"),
-    (lambda rl: rl.APPOConfig().rollouts(num_rollout_workers=2),
-     "Queue 1 item 5"),
+    (lambda rl: rl.IMPALAConfig().rollouts(num_rollout_workers=2)
+     .resources(num_devices=2), "num_devices.*Queue 1 item 6"),
+    (lambda rl: rl.APPOConfig().rollouts(num_rollout_workers=2)
+     .resources(num_devices=2), "num_devices.*Queue 1 item 6"),
     (lambda rl: rl.PPOConfig().environment("PendulumContinuous-v1"),
      "SAC.*Queue 1 item 7"),
 ], ids=["impala_actor_mode", "appo_actor_mode", "pendulum_continuous"])

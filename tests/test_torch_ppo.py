@@ -257,7 +257,7 @@ def test_ppo_learns_cartpole():
     lambda c: c.training(model={"use_lstm": True}).resources(num_devices=2),
     lambda c: c.training(model={"use_attention": True}).resources(
         zero_sharding="opt"),
-    lambda c: c.rollouts(num_rollout_workers=2),
+    lambda c: c.rollouts(num_rollout_workers=2).resources(num_devices=1),
 ], ids=["num_devices", "zero", "int8", "lstm", "attention", "actor_mode"])
 def test_paths_not_ported_yet_raise(knob):
     config = PPOConfig().anakin(num_envs=4, unroll_length=4).resources(
