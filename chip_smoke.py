@@ -30,7 +30,18 @@ three main paths with random weights from a seed:
   and cannot resolve CUDA; a ``num_gpus=1`` actor sees the card; a second
   one waits until the first is killed; GPT-2 small's bf16 state dict goes
   from the GPU actor to the driver bit for bit, with its put and get
-  rates), ``[disagg-actor]`` (``bench_serving_disagg``'s two legs at
+  rates), ``[serve]`` (``LLMServer`` as a Serve deployment, replicas at
+  half a card: fp32 tokens through ``generate_many``, the handle and HTTP
+  equal to ``[fp32]``'s ``NaiveLM(width=1024)`` tokens, p50/p99 latency
+  and tokens/s beside the engine in this process; then bf16 autoscaled
+  1 -> 2 -> 1 replicas on ``autoscale_metric`` under 8 saturating
+  clients; no engine path launches a flash kernel), ``[rlhf]``
+  (``RLHFLoop`` at GPT-2 small's width in bf16, a ``RemoteEngine`` at
+  half a card, 16 rollouts of 960 + 64 tokens a step, overlapped and
+  drain-then-train: the weight version advances one a step, 60 / 48 / 48
+  flash launches a step; on an fp32 2-layer cut the engine's behavior
+  log-probs equal the learner's recomputation and the learner's first
+  gradients and update losses the CPU's), ``[disagg-actor]`` (``bench_serving_disagg``'s two legs at
   GPT-2 small fp32, the ``PrefillWorker`` a GPU actor beside the driver's
   engine, the object plane off and on: tokens equal to the colocated
   leg's and to ``[disagg]``'s in-process native leg, occupancy, TTFT and
@@ -677,9 +688,10 @@ def engine_line(tag, st, seconds):
         f"{st['admitted_mid_batch']}")
 
 
-def phase_fp32_slice() -> int:
+def phase_fp32_slice() -> tuple:
     """The main path: GPT-2 small fp32 through LLMServer, token-identical
-    to NaiveLM(width=1024).  Returns the flash launches of this run."""
+    to NaiveLM(width=1024).  Returns the flash launches of this run, the
+    requests and NaiveLM's tokens."""
     kw = {"tiny": False, "dtype": torch.float32}
     server = LLMServer("gpt2", kw, seed=SEED, max_slots=4)
     model = build_model("gpt2", kw, seed=SEED)
@@ -718,7 +730,7 @@ def phase_fp32_slice() -> int:
                 f"logit there {m:.3g}")
     log(f"[fp32] {len(requests)} requests (prompts {PROMPT_LENS}, "
         f"{NEW_TOKENS} new tokens, greedy) token-identical to NaiveLM")
-    return launches
+    return launches, requests, want
 
 
 def phase_bf16_slice():
@@ -2116,6 +2128,580 @@ def phase_impala_actor(card) -> dict:
     return {"flash": dict(attn.LAUNCHES)}
 
 
+# ---------------------------------------------------------------------------
+# The Serve control plane with LLMServer as a GPU deployment ([serve]), and
+# the RLHF loop ([rlhf]), in the runtime's shared cluster
+# ---------------------------------------------------------------------------
+# [serve]: replicas of GPT-2 small at half a card each (two share it), 16
+# replica threads (8 clients plus the controller's metric polls); the
+# engine settings of [fp32].  Latency: [fp32]'s 6 requests sent together,
+# one warm-up round then SERVE_ROUNDS timed, through the engine in this
+# process, the handle and HTTP.  Autoscaling: a bf16 redeployment driven
+# by SERVE_CLIENTS saturating threads, on autoscale_metric (in-flight work
+# per decode slot).
+SERVE_ENGINE = {"max_slots": 4}
+SERVE_GPUS = 0.5
+SERVE_OPTIONS = {"num_gpus": SERVE_GPUS, "max_concurrency": 16}
+SERVE_ROUNDS = 3
+SERVE_CLIENTS = 8
+SERVE_SCALE_S = 60.0  # the bound of the scale-up and of the scale-down
+SERVE_AUTOSCALING = {"min_replicas": 1, "max_replicas": 2,
+                     "metric_method": "autoscale_metric",
+                     "target_num_ongoing_requests_per_replica": 1.0,
+                     "look_back_polls": 2}
+
+
+class FlashServer(LLMServer):
+    """``LLMServer`` that also reports its process's flash launches."""
+
+    def flash_launches(self) -> dict:
+        return dict(attn.LAUNCHES)
+
+
+def percentile_ms(seconds, q) -> float:
+    return float(np.percentile(np.asarray(seconds) * 1e3, q))
+
+
+def timed_requests(call, requests, rounds) -> tuple:
+    """``requests`` sent together through ``call`` (request -> tokens):
+    one warm-up round, then ``rounds`` timed.  Returns (the last round's
+    tokens, every timed request's seconds, the timed wall seconds)."""
+    def one(r):
+        t = time.perf_counter()
+        out = call(r)
+        return out, time.perf_counter() - t
+
+    latencies = []
+    with concurrent.futures.ThreadPoolExecutor(len(requests)) as pool:
+        list(pool.map(one, requests))
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            res = list(pool.map(one, requests))
+            latencies += [s for _, s in res]
+        wall = time.perf_counter() - t0
+    return [o for o, _ in res], latencies, wall
+
+
+def post_json(port, name, payload) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/{name}",
+        data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=GET_S) as resp:
+        return json.loads(resp.read())
+
+
+def check_tokens(tag, requests, got, want):
+    for r, g, w in zip(requests, got, want):
+        if g != w:
+            i = next(j for j, (a, b) in enumerate(zip(g, w)) if a != b)
+            raise AssertionError(
+                f"[serve] {tag} != NaiveLM for prompt length "
+                f"{len(r['tokens'])} at token {i}: {g[i]} vs {w[i]}")
+
+
+def replica_launches(dep) -> dict:
+    total = collections.Counter()
+    for r in dep._replicas:
+        total.update(ray_tpu_torch.get(
+            r.handle_request.remote("flash_launches", (), {}),
+            timeout=GET_S))
+    return dict(total)
+
+
+def phase_serve(card, requests, want) -> dict:
+    """LLMServer as a Serve deployment at GPT-2 small's width: fp32
+    replicas at half a card answer [fp32]'s requests through
+    ``generate_many``, the handle and HTTP with NaiveLM(1024)'s tokens;
+    then a bf16 redeployment scales 1 -> 2 -> 1 under a saturating client
+    on ``autoscale_metric``.  No engine path launches a flash kernel."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve import generate_many
+    from ray_tpu_torch.util.metrics import prometheus_text
+
+    get = ray_tpu_torch.get
+    new_tokens = sum(r["max_new_tokens"] for r in requests)
+    out = {}
+    zero_launches()
+    server = LLMServer("gpt2", GPT2_SMALL_FP32, seed=SEED, **SERVE_ENGINE)
+    try:
+        got, lat, wall = timed_requests(lambda r: server(r)["tokens"],
+                                        requests, SERVE_ROUNDS)
+    finally:
+        server.drain()
+    check_tokens("the engine in this process", requests, got, want)
+    out["engine"] = (lat, wall)
+    try:
+        t0 = time.perf_counter()
+        dep = serve.deployment(FlashServer, name="llm",
+                               ray_actor_options=SERVE_OPTIONS)
+        handle = serve.run(dep.bind("gpt2", GPT2_SMALL_FP32, SEED,
+                                    **SERVE_ENGINE))
+        get(handle.method("stats").remote(), timeout=GET_S)
+        deploy_s = time.perf_counter() - t0
+        prompts = [r["tokens"] for r in requests]
+        got = generate_many(handle, prompts, NEW_TOKENS, timeout=GET_S)
+        check_tokens("generate_many", requests, got, want)
+        got, lat, wall = timed_requests(
+            lambda r: get(handle.remote(r), timeout=GET_S)["tokens"],
+            requests, SERVE_ROUNDS)
+        check_tokens("the handle", requests, got, want)
+        out["handle"] = (lat, wall)
+        port = serve.start_http_proxy()
+        got, lat, wall = timed_requests(
+            lambda r: post_json(port, "llm", r)["result"]["tokens"],
+            requests, SERVE_ROUNDS)
+        check_tokens("HTTP", requests, got, want)
+        out["http"] = (lat, wall)
+        launches = collections.Counter(replica_launches(dep))
+        log(f"[serve] {card} | fp32 GPT-2 small as a deployment "
+            f"(num_gpus={SERVE_GPUS}, deployed and ready in {deploy_s:.2f} "
+            f"s): generate_many, the handle and HTTP token-identical to "
+            f"NaiveLM(width=1024) on {len(requests)} requests")
+        for path, (lat, wall) in out.items():
+            note(f"serve-{path}", p50_ms=percentile_ms(lat, 50),
+                 p99_ms=percentile_ms(lat, 99),
+                 tokens_per_s=SERVE_ROUNDS * new_tokens / wall)
+            log(f"[serve] {card} | {path}: {len(lat)} requests ("
+                f"{len(requests)} together x {SERVE_ROUNDS}), latency p50 "
+                f"{percentile_ms(lat, 50):.1f} ms p99 "
+                f"{percentile_ms(lat, 99):.1f} ms, "
+                f"{SERVE_ROUNDS * new_tokens / wall:.1f} tokens/s")
+
+        # bf16, autoscaled on autoscale_metric under a saturating client.
+        kw16 = {**GPT2_SMALL_FP32, "dtype": torch.bfloat16}
+        dep16 = serve.deployment(FlashServer, name="llm",
+                                 ray_actor_options=SERVE_OPTIONS,
+                                 autoscaling_config=SERVE_AUTOSCALING)
+        handle = serve.run(dep16.bind("gpt2", kw16, SEED, **SERVE_ENGINE))
+        get(handle.remote(requests[0]), timeout=GET_S)
+        stop, done = threading.Event(), collections.Counter()
+        done_lock = threading.Lock()
+
+        def client(i):
+            k = i
+            while not stop.is_set():
+                r = requests[k % len(requests)]
+                get(handle.remote(r), timeout=GET_S)
+                with done_lock:
+                    done["requests"] += 1
+                    done["tokens"] += r["max_new_tokens"]
+                k += 1
+
+        pool = concurrent.futures.ThreadPoolExecutor(SERVE_CLIENTS)
+        t_load = time.perf_counter()
+        clients = [pool.submit(client, i) for i in range(SERVE_CLIENTS)]
+        try:
+            time.sleep(1.0)
+            metric = get(dep16._replicas[0].handle_request.remote(
+                "autoscale_metric", (), {}), timeout=GET_S)
+            while handle.num_replicas < 2:
+                if time.perf_counter() - t_load > SERVE_SCALE_S:
+                    raise AssertionError(
+                        f"[serve] no scale-up within {SERVE_SCALE_S} s "
+                        f"(autoscale_metric {metric})")
+                time.sleep(0.05)
+            t_up = time.perf_counter()
+            second = dep16._replicas[-1]
+            first_stats = get(second.handle_request.remote(
+                "stats", (), {}), timeout=GET_S)
+            cold_s = time.perf_counter() - t_up
+            while get(second.handle_request.remote("stats", (), {}),
+                      timeout=GET_S)["completed"] < 1:
+                time.sleep(0.1)
+            launches.update(replica_launches(dep16))
+            metrics = [get(r.handle_request.remote(
+                "autoscale_metric", (), {}), timeout=GET_S)
+                for r in dep16._replicas]
+        finally:
+            stop.set()
+            for c in clients:
+                c.result(timeout=GET_S)
+            pool.shutdown()
+        load_s = time.perf_counter() - t_load
+        t_stop = time.perf_counter()
+        while handle.num_replicas > 1:
+            if time.perf_counter() - t_stop > SERVE_SCALE_S:
+                raise AssertionError(f"[serve] no scale-down within "
+                                     f"{SERVE_SCALE_S} s")
+            time.sleep(0.05)
+        down_s = time.perf_counter() - t_stop
+        names = sorted({line.split("{")[0].split(" ")[0]
+                        for line in prometheus_text().splitlines()
+                        if line.startswith("serve_")})
+    finally:
+        serve.shutdown()
+    launches.update(attn.LAUNCHES)
+    launches = {name: launches.get(name, 0) for name in attn.LAUNCHES}
+    note("serve-autoscale", scale_up_s=t_up - t_load, cold_s=cold_s,
+         scale_down_s=down_s, metric=metric,
+         tokens_per_s=done["tokens"] / load_s)
+    log(f"[serve] {card} | bf16 with autoscaling_config "
+        f"{SERVE_AUTOSCALING}: {SERVE_CLIENTS} saturating clients; "
+        f"autoscale_metric {metric:.2f} on one replica; 1 -> 2 replicas "
+        f"{t_up - t_load:.2f} s after the load began; the second replica's "
+        f"cold start (its first answer after it joined: spawn, imports, "
+        f"CUDA context, GPT-2 small) {cold_s:.2f} s; autoscale_metric "
+        f"then {[round(m, 2) for m in metrics]}; {done['requests']} "
+        f"requests, {done['tokens'] / load_s:.1f} tokens/s over "
+        f"{load_s:.2f} s; 2 -> 1 replica {down_s:.2f} s after the load "
+        f"stopped; the second replica's first stats at weight version "
+        f"{first_stats['weight_version']}")
+    log(f"[serve] serve_* metrics in prometheus_text(): {names}")
+    log(f"[serve] flash launches (this process and every replica) "
+        f"{launches}")
+    want_names = {"serve_tokens", "serve_requests", "serve_inflight_requests",
+                  "serve_batch_occupancy", "serve_kv_pages_in_use",
+                  "serve_kv_pages_free", "serve_tokens_per_s",
+                  "serve_queue_wait_s_count"}
+    if not want_names <= set(names):
+        raise AssertionError(f"[serve] metrics missing: "
+                             f"{sorted(want_names - set(names))}")
+    if any(launches.values()):
+        raise AssertionError(f"[serve] an engine path launched {launches}")
+    return {"serve": launches}
+
+
+# [rlhf]: bench_rlhf's loop (bench.py:968-1060) at GPT-2 small's width in
+# bf16: 16 prompts of 960 tokens from the seed, 64 new tokens (so pad_to
+# is 1024 and every forward and backward of the learner runs the flash
+# kernels), 16 rollouts a step, 2 epochs of 2 minibatches of 8, the
+# target-token reward, the engine a RemoteEngine actor at half a card.
+# One warm-up step and RLHF_TIMED_STEPS timed, with overlap and without.
+# lr 1e-5: the toy bench's 1e-2 is for its 2-layer width-64 model.
+RLHF_PROMPTS, RLHF_PROMPT_LEN, RLHF_NEW, RLHF_TARGET = 16, 960, 64, 7
+RLHF_VOCAB = 50257
+RLHF_CONFIG = {"rollouts_per_step": 16, "max_new_tokens": RLHF_NEW,
+               "num_sgd_iter": 2, "minibatch_size": 8, "lr": 1e-5,
+               "entropy_coeff": 0.001, "seed": SEED}
+RLHF_ENGINE = {"max_slots": 16, "page_size": 16, "max_ctx": 1024}
+RLHF_GPUS = 0.5
+RLHF_TIMED_STEPS = 4
+# Flash launches of a step, E epochs of M minibatches: the advantage
+# forward and each minibatch's forward run 12 layers of the forward; each
+# minibatch's backward 12 of dq and of dkv.
+RLHF_LAYERS = 12
+# The fp32 cut: GPT-2 small's width at 2 layers, 4 rollouts of the same
+# prompts; its update in 2 epochs of 2 minibatches of 2.  Behavior
+# logprobs (the engine's decode, cached attention) against the learner's
+# full-context forward (the flash forward) at tests/test_rlhf.py:166's
+# tolerance.  The card's learner against the CPU's at [train-fp32]'s
+# tolerances: the first minibatch's loss terms and the whole update's
+# loss metrics within FP32_LOSS_RTOL of the largest term (the entropy,
+# ~ln V: the total is a sum of terms that cancel), and the first
+# minibatch's gradient of each parameter within FP32_GRAD_REL in relative
+# norm.  The update itself is a reading: Adam divides each gradient by
+# its running RMS, so where successive minibatches' gradients cancel the
+# update's relative error exceeds the gradients' (2.5e-4 on ln_f.weight
+# on an H100 80GB HBM3); the K third of the fused QKV
+# biases is left out of it, since softmax is invariant to a shift of
+# every key by one vector, so that part's exact gradient is 0 and Adam
+# scales the rounding noise that stands in for it to as much as lr.
+RLHF_CUT_LAYERS, RLHF_CUT_ROLLOUTS, RLHF_CUT_MINIBATCH = 2, 4, 2
+LOGP_RTOL, LOGP_ATOL = 1e-4, 1e-5
+
+
+def rlhf_prompts() -> list:
+    rng = np.random.default_rng(SEED)
+    return rng.integers(0, RLHF_VOCAB, size=(RLHF_PROMPTS, RLHF_PROMPT_LEN)
+                        ).tolist()
+
+
+def actor_critic(config_kw, device=None):
+    """GPT2WithValue whose lm holds build_model(config_kw, SEED)'s
+    weights (the engine's version 0), its value head from the seed."""
+    from ray_tpu_torch.models import GPT2WithValue
+
+    lm = build_model("gpt2", config_kw, seed=SEED, device="cpu")
+    model = GPT2WithValue(lm.config).init_from_lm(
+        lm.state_dict(), torch.Generator().manual_seed(SEED))
+    return model if device is None else model.to(device)
+
+
+def recomputed_logp_error(model, rollouts) -> tuple:
+    """The learner's log-probs of the sampled tokens (one full-context
+    forward of the padded batch) against the engine's behavior
+    log-probs: (max |d|, max of |d| - rtol |want| - atol)."""
+    from ray_tpu_torch.rllib.algorithms.rlhf import sequence_logprobs
+    from ray_tpu_torch.rllib.evaluation.sequence_batch import SequenceBatch
+
+    batch = SequenceBatch.from_rollouts(rollouts, 1024)
+    device = next(model.parameters()).device
+    tokens = torch.from_numpy(batch.tokens).long().to(device)
+    with torch.no_grad():
+        logits, _ = model(tokens)
+        lp = sequence_logprobs(logits, tokens).cpu().numpy()
+    mask = batch.response_mask[:, 1:] > 0
+    got, want = lp[mask], batch.behavior_logp[:, 1:][mask]
+    d = np.abs(got - want)
+    return float(d.max()), float((d - LOGP_RTOL * np.abs(want)
+                                  - LOGP_ATOL).max())
+
+
+def rlhf_run(card, overlap, prompts) -> dict:
+    from ray_tpu_torch.rllib.algorithms.rlhf import (
+        RLHFConfig,
+        RLHFLoop,
+        RemoteEngine,
+        target_token_reward,
+    )
+    from ray_tpu_torch.rllib.evaluation.sequence_batch import (
+        SequenceRollout,
+    )
+
+    kw16 = {**GPT2_SMALL_FP32, "dtype": torch.bfloat16}
+    t0 = time.perf_counter()
+    model = actor_critic(kw16)
+    eng = RemoteEngine("gpt2", kw16, SEED, num_gpus=RLHF_GPUS, **RLHF_ENGINE)
+    out = {}
+    loop = None
+    try:
+        if overlap:
+            # The first minibatch's worth of rollouts: behavior log-probs
+            # against the learner's recomputation (bf16: a reading).
+            recs = eng.generate_rollouts(
+                prompts[:RLHF_CONFIG["minibatch_size"]], RLHF_NEW,
+                sampling=[SamplingParams(temperature=1.0, seed=SEED + i)
+                          for i in range(RLHF_CONFIG["minibatch_size"])],
+                timeout=GET_S)
+            out["logp_max_err"], _ = recomputed_logp_error(
+                model.to(ray_tpu_torch.resolve_device()),
+                [SequenceRollout.from_engine(r) for r in recs])
+        loop = RLHFLoop(eng, model, prompts,
+                        target_token_reward(RLHF_TARGET),
+                        RLHFConfig(overlap=overlap, **RLHF_CONFIG))
+        out["setup_s"] = time.perf_counter() - t0
+        lm_bytes = state_bytes(loop.learner.lm_state_dict())
+        steps = []
+        for _ in range(1 + RLHF_TIMED_STEPS):
+            zero_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            m = loop.step()
+            m["step_s"] = time.perf_counter() - t
+            m["launches"] = dict(attn.LAUNCHES)
+            m["engine_version"] = eng.weight_version
+            m["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            steps.append(m)
+        out["engine_stats"] = eng.stats()
+        out["stamps"] = np.asarray(eng.recent_step_stamps())
+        out["stale"] = loop.stale_batches_dropped
+    finally:
+        if loop is not None:
+            loop.close()
+        eng.close()
+        del model, loop
+        torch.cuda.empty_cache()
+    out["steps"], out["lm_mib"] = steps, lm_bytes / 2 ** 20
+    return out
+
+
+def rlhf_fp32_cut(card, prompts) -> dict:
+    """The fp32 cut on the card: the engine's behavior log-probs against
+    the learner's recomputation, and the learner against the CPU's on the
+    same batch: the first minibatch's loss and gradients, then one whole
+    update's loss metrics."""
+    from ray_tpu_torch.rllib.algorithms.rlhf import (
+        SeqPPOLearner,
+        sequence_ppo_loss,
+        target_token_reward,
+    )
+    from ray_tpu_torch.rllib.evaluation.sequence_batch import (
+        SequenceBatch,
+        SequenceRollout,
+    )
+
+    kw = {**GPT2_SMALL_FP32, "num_layers": RLHF_CUT_LAYERS}
+    n = RLHF_CUT_ROLLOUTS
+    eng = LLMEngine(build_model("gpt2", kw, seed=SEED), **RLHF_ENGINE)
+    try:
+        recs = eng.generate_rollouts(
+            prompts[:n], RLHF_NEW,
+            sampling=[SamplingParams(temperature=1.0, seed=SEED + i)
+                      for i in range(n)], timeout=GET_S)
+    finally:
+        eng.close()
+    rollouts = [SequenceRollout.from_engine(r) for r in recs]
+    reward = target_token_reward(RLHF_TARGET)
+    for r in rollouts:
+        r.reward = reward(r.prompt, r.tokens)
+    zero_launches()
+    card_device = ray_tpu_torch.resolve_device()
+    logp_err, logp_excess = recomputed_logp_error(
+        actor_critic(kw, card_device), rollouts)
+    fwd = attn.LAUNCHES["flash_fwd"]
+    batch = SequenceBatch.from_rollouts(rollouts, 1024).as_dict()
+    losses, grads, metrics, updates = {}, {}, {}, {}
+    for key, device in (("cuda", card_device), ("cpu", "cpu")):
+        model = actor_critic(kw)
+        hidden = model.config.hidden_size
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        learner = SeqPPOLearner(
+            model, batch_size=n, pad_to=1024,
+            minibatch_size=RLHF_CUT_MINIBATCH,
+            **{k: RLHF_CONFIG[k] for k in ("num_sgd_iter", "lr",
+                                           "entropy_coeff", "seed")},
+            device=device)
+        flat = learner.sgd_batch(batch)
+        loss, aux = sequence_ppo_loss(
+            learner.model, {k: v[:RLHF_CUT_MINIBATCH] for k, v in
+                            flat.items()},
+            clip_param=0.2, vf_coeff=0.5,
+            entropy_coeff=RLHF_CONFIG["entropy_coeff"])
+        params = dict(learner.model.named_parameters())
+        losses[key] = {"total": loss.item(),
+                       **{k: v.item() for k, v in aux.items()}}
+        grads[key] = dict(zip(params, (g.cpu() for g in torch.autograd.grad(
+            loss, list(params.values())))))
+        metrics[key] = learner.update(batch)
+        updates[key] = {k: v.detach().cpu() - start[k]
+                        for k, v in model.state_dict().items()}
+        del model, learner, flat, loss
+    torch.cuda.empty_cache()
+
+    def rel_norm(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    grad_rel = {k: rel_norm(g, grads["cpu"][k])
+                for k, g in grads["cuda"].items()}
+    update_rel = {}
+    for name, u in updates["cuda"].items():
+        ref = updates["cpu"][name]
+        if name.endswith("attn_qkv.bias"):  # drop the K third (see above)
+            u = torch.cat([u[:hidden], u[2 * hidden:]])
+            ref = torch.cat([ref[:hidden], ref[2 * hidden:]])
+        update_rel[name] = rel_norm(u, ref)
+    scale = max(1.0, abs(losses["cpu"]["entropy"]))
+    loss_err = max(abs(losses["cuda"][k] - losses["cpu"][k])
+                   for k in losses["cpu"]) / scale
+    metric_err = max(abs(metrics["cuda"][k] - metrics["cpu"][k])
+                     for k in metrics["cpu"]) / scale
+    worst_g = max(grad_rel, key=grad_rel.get)
+    worst_u = max(update_rel, key=update_rel.get)
+    out = {"logp_err": logp_err, "loss_err": loss_err,
+           "grad_rel": grad_rel[worst_g], "metric_err": metric_err,
+           "update_rel": update_rel[worst_u]}
+    log(f"[rlhf] {card} | fp32 cut ({RLHF_CUT_LAYERS} layers at GPT-2 "
+        f"small's width, {n} rollouts of {RLHF_PROMPT_LEN} + {RLHF_NEW}): "
+        f"the engine's behavior log-probs against the learner's "
+        f"recomputation (flash forward, {fwd} launches): max |d| "
+        f"{logp_err:.3g} (bound {LOGP_ATOL} + {LOGP_RTOL} |logp|); the "
+        f"first minibatch card vs CPU: loss terms {losses['cuda']} vs "
+        f"{losses['cpu']} (worst |d| {loss_err:.3g} of the largest term, "
+        f"bound {FP32_LOSS_RTOL}), worst gradient relative norm error "
+        f"{grad_rel[worst_g]:.3g} ({worst_g}; bound {FP32_GRAD_REL}); one "
+        f"update ({RLHF_CONFIG['num_sgd_iter']} epochs x "
+        f"{n // RLHF_CUT_MINIBATCH} minibatches) card vs CPU: loss metrics "
+        f"worst |d| {metric_err:.3g} of the largest term (bound "
+        f"{FP32_LOSS_RTOL}); the update's worst relative norm error "
+        f"{update_rel[worst_u]:.3g} ({worst_u}; a reading: Adam divides "
+        f"each gradient by its running RMS)")
+    if logp_excess > 0:
+        raise AssertionError(f"[rlhf] behavior log-probs differ: max |d| "
+                             f"{logp_err}")
+    if fwd != RLHF_CUT_LAYERS:
+        raise AssertionError(f"[rlhf] the recomputation launched {fwd}")
+    if not (loss_err <= FP32_LOSS_RTOL and metric_err <= FP32_LOSS_RTOL):
+        raise AssertionError(f"[rlhf] losses differ: {losses}, {metrics}")
+    if not grad_rel[worst_g] <= FP32_GRAD_REL:
+        raise AssertionError(f"[rlhf] gradients differ: {grad_rel}")
+    return out
+
+
+def phase_rlhf(card) -> dict:
+    """RLHFLoop at GPT-2 small's width in bf16 with a RemoteEngine on the
+    card, overlapped and drain-then-train; every step advances the weight
+    version by one and launches the three flash kernels as many times as
+    its epochs and minibatches say; then the fp32 cut."""
+    prompts = rlhf_prompts()
+    e = RLHF_CONFIG["num_sgd_iter"]
+    m = RLHF_CONFIG["rollouts_per_step"] // RLHF_CONFIG["minibatch_size"]
+    want = {"flash_fwd": RLHF_LAYERS * (1 + e * m),
+            "flash_dq": RLHF_LAYERS * e * m,
+            "flash_dkv": RLHF_LAYERS * e * m}
+    runs = {tag: rlhf_run(card, overlap, prompts)
+            for tag, overlap in (("overlap", True), ("drain", False))}
+    launches = collections.Counter()
+    for tag, run in runs.items():
+        steps, timed = run["steps"], run["steps"][1:]
+        versions = [s["weight_version"] for s in steps]
+        if versions != list(range(1, len(steps) + 1)) or \
+                [s["engine_version"] for s in steps] != versions:
+            raise AssertionError(f"[rlhf] {tag}: versions {versions}, the "
+                                 f"engine's "
+                                 f"{[s['engine_version'] for s in steps]}")
+        for s in steps:
+            if s["launches"] != want:
+                raise AssertionError(f"[rlhf] {tag}: a step launched "
+                                     f"{s['launches']}, expected {want}")
+            if not np.isfinite(s["total_loss"]):
+                raise AssertionError(f"[rlhf] {tag}: loss {s['total_loss']}")
+            launches.update(s["launches"])
+        wall = sum(s["step_s"] for s in timed)
+        tokens = sum(s["response_tokens"] for s in timed)
+        run["tokens_per_s"] = tokens / wall
+        per_step = {
+            "step_ms": 1e3 * wall / len(timed),
+            "gen_ms": 1e3 * float(np.mean([s["gen_window"][1]
+                                            - s["gen_window"][0]
+                                            for s in timed])),
+            "sgd_ms": 1e3 * float(np.mean([s["sgd_seconds"]
+                                            for s in timed])),
+            "swap_s": float(np.mean([s["swap_seconds"]
+                                     + s["swap_put_seconds"]
+                                     for s in timed])),
+            "put_s": float(np.mean([s["swap_put_seconds"]
+                                    for s in timed])),
+            "busy": float(np.mean([s["gen_busy_frac_during_sgd"]
+                                   for s in timed])),
+            # The engine's decode steps (stamped with CLOCK_MONOTONIC in
+            # its process) that ended inside each SGD window.
+            "decode_in_sgd": float(np.mean([
+                ((run["stamps"] >= s["sgd_window"][0])
+                 & (run["stamps"] <= s["sgd_window"][1])).sum()
+                for s in timed])),
+            # SGD windows during which this process had a generate call
+            # in flight (the stage thread's call to its return), over the
+            # timed steps but the last, whose next batch is never taken.
+            "gen_call_in_sgd": sum(
+                any(g["gen_window"][0] <= s["sgd_window"][1]
+                    and g["gen_window"][1] >= s["sgd_window"][0]
+                    for g in steps) for s in timed[:-1]),
+            "peak_gib": max(s["peak_gib"] for s in steps)}
+        run.update(per_step)
+        note(f"rlhf-{tag}", tokens_per_s=run["tokens_per_s"],
+             stale=run["stale"], **per_step)
+        log(f"[rlhf] {card} | {tag}: setup {run['setup_s']:.1f} s; "
+            f"{len(timed)} timed steps of {RLHF_CONFIG['rollouts_per_step']}"
+            f" rollouts ({RLHF_PROMPT_LEN} + {RLHF_NEW} tokens, pad_to "
+            f"1024): {per_step['step_ms']:.0f} ms a step; generation "
+            f"{per_step['gen_ms']:.0f} ms, SGD {per_step['sgd_ms']:.0f} ms,"
+            f" swap {per_step['swap_s']:.3f} s ({per_step['put_s']:.3f} s of"
+            f" it the put of {run['lm_mib']:.1f} MiB) a step; "
+            f"gen_busy_frac_during_sgd {per_step['busy']:.3f} "
+            f"({per_step['decode_in_sgd']:.1f} engine decode steps ended "
+            f"in an SGD window; a generate call in flight during "
+            f"{per_step['gen_call_in_sgd']} of {len(timed) - 1} SGD "
+            f"windows); "
+            f"{run['tokens_per_s']:.1f} response tokens/s; stale batches "
+            f"dropped {run['stale']}; learner peak "
+            f"{per_step['peak_gib']:.2f} GiB; rewards "
+            f"{[round(s['reward_mean'], 3) for s in steps]}; weight "
+            f"versions {[s['weight_version'] for s in steps]} (the "
+            f"engine's agree); flash launches a step {steps[0]['launches']}")
+    log(f"[rlhf] {card} | bf16 behavior log-probs against the learner's "
+        f"recomputation, one minibatch: max |d| "
+        f"{runs['overlap']['logp_max_err']:.3g} (a reading); response "
+        f"tokens/s with overlap {runs['overlap']['tokens_per_s']:.1f}, "
+        f"without {runs['drain']['tokens_per_s']:.1f}")
+    cut = rlhf_fp32_cut(card, prompts)
+    note("rlhf", logp_bf16_max=runs["overlap"]["logp_max_err"],
+         **{f"cut_{k}": v for k, v in cut.items()})
+    return {"rlhf": dict(launches)}
+
+
 def train_steps(b, length, iters, seed=SEED, batches=None) -> dict:
     """GPT-2 small steps at B x S: bf16 compute over fp32 parameters,
     adamw(3e-4), on the ids ``batches`` yields (tensors on the card), or
@@ -3324,7 +3910,8 @@ def main():
     timed("build", phase_build)
     timed("kernel", phase_kernel_grid)
     timed("kernel-bwd", phase_kernel_bwd_grid)
-    serve_launches = timed("fp32", phase_fp32_slice)
+    fp32_launches, fp32_requests, fp32_want = timed("fp32",
+                                                     phase_fp32_slice)
     timed("bf16", phase_bf16_slice)
     serve_model = build_model("gpt2", GPT2_SMALL_FP32, seed=SEED)
     serving = {}
@@ -3341,6 +3928,9 @@ def main():
     ray_tpu_torch.init(num_cpus=RUNTIME_CPUS)
     try:
         timed("runtime", phase_runtime, card)
+        serving.update(timed("serve", phase_serve, card, fp32_requests,
+                             fp32_want))
+        rlhf = timed("rlhf", phase_rlhf, card)
         serving.update(timed("disagg-actor", phase_disagg_actor, card,
                              serve_model, disagg_native))
         serving.update(timed("swap-ref", phase_swap_ref, card, serve_model))
@@ -3388,7 +3978,7 @@ def main():
                for kind, n in timed("memory", phase_memory, card).items()})
     note("done", s=time.perf_counter() - t0)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
-    by_path = {"serve": {"flash_fwd": serve_launches}, **serving,
+    by_path = {"fp32": {"flash_fwd": fp32_launches}, **serving, **rlhf,
                **{f"train {tag}": run["launches"]
                   for tag, run in train.items()},
                **actor_train, **trainer, **actor_rl,

@@ -68,9 +68,14 @@ def untrack(shm: shared_memory.SharedMemory):
     """Tell the resource tracker this process does NOT own the segment.
 
     Python 3.12 registers every SharedMemory (even attaches) with the
-    tracker, which would unlink live objects when this process exits."""
+    tracker, which would unlink live objects when this process exits.
+    Each construction registers anew, so each is unregistered, also when
+    the name was untracked before: a recycled pool segment is attached
+    again under the same name, and a registration left from the second
+    attach would unlink the owner's live segment when this process
+    exits."""
     name = shm._name  # type: ignore[attr-defined]
-    if name in _untracked or name in _process_owned:
+    if name in _process_owned:
         return
     try:
         resource_tracker.unregister(name, "shared_memory")

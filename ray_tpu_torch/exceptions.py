@@ -134,6 +134,12 @@ class OutOfMemoryError(RayTpuError):
     src/ray/common/memory_monitor.h:52 + worker_killing_policy.h:33)."""
 
 
+class BatcherClosedError(RayTpuError):
+    """A @serve.batch batcher was closed (deployment teardown /
+    serve.shutdown) while this call was queued or before it was
+    submitted — the request was never handed to the handler."""
+
+
 class PlacementGroupSchedulingError(RayTpuError):
     """Placement group could not be reserved (infeasible or timeout)."""
 

@@ -1,9 +1,10 @@
-"""Model zoo of the port (counterpart of ``ray_tpu/models``): GPT-2,
-the Llama family, and the RL trunks ``MLP``, ``NatureCNN`` and
+"""Model zoo of the port (counterpart of ``ray_tpu/models``): GPT-2
+(and its RLHF actor-critic ``GPT2WithValue``), the Llama family, and the RL trunks ``MLP``, ``NatureCNN`` and
 ``MinAtarCNN``."""
 from ray_tpu_torch.models.gpt2 import (  # noqa: F401
     GPT2,
     GPT2Config,
+    GPT2WithValue,
     gpt2_loss_fn,
 )
 from ray_tpu_torch.models.llama import (  # noqa: F401

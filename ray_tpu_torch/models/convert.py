@@ -10,7 +10,10 @@ names of ``ray_tpu/models/gpt2.py::_AXIS_BY_NAME``:
 - ``h_{i}/ln_1|ln_2/{scale,bias}`` -> ``h.{i}.ln_1|ln_2.{weight,bias}``;
 - ``h_{i}/attn_qkv|attn_proj|mlp_fc|mlp_proj/{kernel [in, out], bias}``
   -> ``h.{i}.<name>.{weight [out, in] (transposed), bias}``;
-- ``wte`` and ``wpe`` as they are; ``ln_f`` as a LayerNorm.
+- ``wte`` and ``wpe`` as they are; ``ln_f`` as a LayerNorm;
+- for ``GPT2WithValue`` (the RLHF actor-critic): ``lm/...`` -> ``lm.``
+  plus the names above, ``value_head/{kernel [h, 1], bias [1]}`` ->
+  ``value_head.{weight [1, h] (transposed), bias}``.
 
 ``llama_params_from_jax``, for ``ray_tpu_torch.models.Llama``, with the
 names of ``ray_tpu/models/llama.py``:
@@ -78,12 +81,21 @@ def _tensor(a) -> torch.Tensor:
 
 
 def gpt2_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax GPT-2 params (nested dict of numpy arrays) -> port state_dict.
-    Raises ``KeyError`` on a name it does not know, so no parameter is
-    dropped silently."""
+    """flax GPT-2 (or ``GPT2WithValue``) params (nested dict of numpy
+    arrays) -> port state_dict.  Raises ``KeyError`` on a name it does not
+    know, so no parameter is dropped silently."""
     out: Dict[str, torch.Tensor] = {}
     for name, sub in tree.items():
-        if name in ("wte", "wpe"):
+        if name == "lm":
+            out.update({f"lm.{k}": t
+                        for k, t in gpt2_params_from_jax(sub).items()})
+        elif name == "value_head":
+            if set(sub) != {"kernel", "bias"}:
+                raise KeyError(f"value_head: expected kernel/bias, got "
+                               f"{sorted(sub)}")
+            out["value_head.weight"] = _tensor(np.asarray(sub["kernel"]).T)
+            out["value_head.bias"] = _tensor(sub["bias"])
+        elif name in ("wte", "wpe"):
             out[name] = _tensor(sub)
         elif name == "ln_f":
             _norm("ln_f", sub, out)

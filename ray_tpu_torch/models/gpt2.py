@@ -16,7 +16,9 @@ same logits:
 Attention goes through ``ops.attention``: ``mha_attention`` (the Hopper
 flash kernels on long CUDA inputs, differentiable) for the full-context
 forward, and ``cached_attention`` for the incremental-decode path.
-``gpt2_loss_fn`` is the training objective.
+``gpt2_loss_fn`` is the training objective.  ``GPT2WithValue`` is the
+RLHF actor-critic: a ``GPT2`` named ``lm`` plus an fp32 value head over
+its post-``ln_f`` hidden state.
 """
 from __future__ import annotations
 
@@ -168,8 +170,12 @@ class GPT2(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 kv_caches: Optional[Sequence[Tuple[torch.Tensor,
                                                    torch.Tensor]]] = None,
-                kv_lengths: Optional[torch.Tensor] = None):
-        """Full context: input_ids [B, L] -> logits [B, L, vocab] fp32.
+                kv_lengths: Optional[torch.Tensor] = None,
+                return_hidden: bool = False):
+        """Full context: input_ids [B, L] -> logits [B, L, vocab] fp32;
+        with ``return_hidden`` also the post-``ln_f`` hidden state
+        [B, L, hidden] fp32 (the value head's input in
+        ``GPT2WithValue``).
 
         Incremental decode (``kv_caches`` given): ``positions`` [B, L] are
         the absolute positions of the new tokens (they index ``wpe``),
@@ -183,6 +189,9 @@ class GPT2(nn.Module):
             self.wpe[positions]
         x = self.wte[input_ids].to(c.dtype) + pos.to(c.dtype)
         decode = kv_caches is not None
+        if decode and return_hidden:
+            raise NotImplementedError(
+                "return_hidden is a full-context (training) path")
         new_kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
         for i, block in enumerate(self.h):
             if decode:
@@ -196,7 +205,57 @@ class GPT2(nn.Module):
                               self.wte.to(c.dtype)).float()
         if decode:
             return logits, new_kvs
+        if return_hidden:
+            return logits, x
         return logits
+
+
+class GPT2WithValue(nn.Module):
+    """GPT-2 plus a scalar value head: the RLHF actor-critic
+    (``ray_tpu/models/gpt2.py:219``).
+
+    The policy is a plain :class:`GPT2` named ``lm``, so
+    ``state_dict()`` entries under ``lm.`` are exactly what a serving
+    engine of the same config takes in ``swap_weights``.  The value head
+    is one fp32 linear over the post-``ln_f`` hidden state, its weight
+    drawn from ``normal(0.01)`` on ``generator`` (a CPU generator; seeded
+    0 when none is given) and its bias zero, so early value estimates do
+    not swamp the policy gradient.  The ``lm`` starts at zeros: load
+    weights with :meth:`init_from_lm` (or ``load_state_dict``).
+
+    ``forward(input_ids) -> (logits [B, L, V] fp32, values [B, L] fp32)``;
+    ``values[:, t]`` estimates the return from the state after token t."""
+
+    def __init__(self, config: GPT2Config,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.config = config
+        self.lm = GPT2(config)
+        self.value_head = nn.Linear(config.hidden_size, 1)
+        self._init_value_head(generator)
+
+    @torch.no_grad()
+    def _init_value_head(self, generator: Optional[torch.Generator] = None):
+        gen = generator or torch.Generator().manual_seed(0)
+        w = torch.empty(self.value_head.weight.shape)
+        w.normal_(0.0, 0.01, generator=gen)
+        self.value_head.weight.copy_(w)
+        self.value_head.bias.zero_()
+
+    def forward(self, input_ids: torch.Tensor):
+        logits, hidden = self.lm(input_ids, return_hidden=True)
+        v = F.linear(hidden.float(), self.value_head.weight.float(),
+                     self.value_head.bias.float())
+        return logits, v[..., 0]
+
+    def init_from_lm(self, lm_state, generator: Optional[torch.Generator]
+                     = None) -> "GPT2WithValue":
+        """Load ``lm_state`` (a ``GPT2`` state dict, e.g. the weights a
+        serving engine already holds) into ``lm`` and draw a fresh value
+        head from ``generator``; returns the module."""
+        self.lm.load_state_dict(lm_state, strict=True)
+        self._init_value_head(generator)
+        return self
 
 
 def gpt2_loss_fn(model: GPT2, batch) -> torch.Tensor:

@@ -58,15 +58,19 @@
    so pre-swap pages become unaddressable.  ``rollout`` and
    ``generate_rollouts`` return tokens with their logprobs and stamps.
 
+9. **Metrics and spans.**  Every ~2 s the loop exports the engine's
+   ``serve_*`` metrics (``util/metrics.py``: tokens, requests, in-flight
+   requests, batch occupancy, KV pages, tokens/s, prefix hits, spec
+   acceptance, the submit-to-admission wait), and each iteration is
+   recorded as a ``serve_engine_step`` span on the trace of an active
+   request that was submitted under one.
+
 The loop is a worker thread owned by the engine (the JAX package runs it
-as a ``flow.Stage`` of its runtime).  Not ported yet (see ROADMAP.md), each
+as a ``flow.Stage`` of its runtime).  ``LLMServer`` is the Serve
+deployment callable (one engine per replica); ``generate_many`` sends a
+prompt batch to a deployment over the object plane.  Not ported yet, and
 raising where a caller reaches it: the cluster prefix directory (what is
-left of Queue 1 item 1a), prefill through a Serve deployment,
-``generate_batch``/``generate_many`` and ``LLMServer`` as a Serve
-deployment (item 9).  Prefill through a ``PrefillWorker`` actor and the
-object plane, and ``swap_weights`` of an ``ObjectRef``, run on the
-port's runtime.  Metrics export and tracing spans (item 9) have no caller
-here.
+left of ROADMAP Queue 1 item 1a).
 
 The engine serves either model family of ``build_model``: GPT-2, and the
 Llama family, whose pages hold K/V at ``num_kv_heads``.
@@ -96,8 +100,6 @@ from ray_tpu_torch.serve.sampling import (
 
 _DIRECTORY = ("is not ported yet: it is left of ROADMAP Queue 1 item 1a, "
               "with multi-host and client mode")
-_SERVE = ("needs the Serve control plane, not ported yet (ROADMAP Queue 1 "
-          "item 9)")
 
 
 def _is_object_ref(value) -> bool:
@@ -178,6 +180,10 @@ class _Request:
     # weight version it was sampled under.
     out_logps: List[float] = dataclasses.field(default_factory=list)
     out_versions: List[int] = dataclasses.field(default_factory=list)
+    submitted: float = dataclasses.field(default_factory=time.monotonic)
+    # The distributed trace the request was submitted under (the caller's
+    # context, when tracing is on): the engine's steps are recorded on it.
+    trace_ctx: Optional[tuple] = None
 
     def context(self) -> List[int]:
         """Prompt plus generated-so-far: what a (re)admission prefills."""
@@ -413,6 +419,9 @@ class LLMEngine:
         self._work_s = 0.0
         self._step_stamps: collections.deque = collections.deque(
             maxlen=1024)
+        self._t0 = time.monotonic()
+        self._metrics = None
+        self._metrics_flush = 0.0
         self._thread: Optional[threading.Thread] = None
         if start:
             self._thread = threading.Thread(target=self._loop, daemon=True,
@@ -447,13 +456,16 @@ class LLMEngine:
                 top_p=1.0 if top_p is None else float(top_p),
                 seed=0 if seed is None else int(seed))
         sampling.validate()
+        from ray_tpu_torch import observability as obs
+
+        trace_ctx = obs.get_context() if obs.enabled() else None
         with self._cond:
             if self._closed:
                 raise EngineClosedError("engine is closed")
             rid = self._next_id
             self._next_id += 1
             req = _Request(rid, prompt, max_new_tokens, eos_id,
-                           sampling=sampling)
+                           sampling=sampling, trace_ctx=trace_ctx)
             self._requests[rid] = req
             self._pending.append(req)
             self._cond.notify_all()
@@ -868,8 +880,25 @@ class LLMEngine:
         except BaseException as e:  # noqa: BLE001 — fail per request
             self._fail_all(e)
             return False
-        self._work_s += time.perf_counter() - t_work0
+        t_work1 = time.perf_counter()
+        self._work_s += t_work1 - t_work0
+        self._record_step_span(t_work0, t_work1)
+        self._flush_metrics()
         return True
+
+    def _record_step_span(self, t0: float, t1: float) -> None:
+        """Record the iteration on an active request's trace, so that a
+        request's decode steps join the client's timeline.  Nothing is
+        recorded when no in-flight request carries a context."""
+        ctx = next((tuple(req.trace_ctx) for req in self._slot_req.values()
+                    if req.trace_ctx is not None), None)
+        if ctx is None:
+            return
+        from ray_tpu_torch._private import profiling
+
+        profiling.record_span("serve_engine_step", t0, t1,
+                              active=int(self._active.sum()),
+                              _trace_ctx=ctx)
 
     # ------------------------------------------------------------------
     # hot weight swap (loop thread only)
@@ -1104,6 +1133,7 @@ class LLMEngine:
         self._stats["admitted"] += 1
         if mid_batch:
             self._stats["admitted_mid_batch"] += 1
+        self._observe_queue_wait(time.monotonic() - req.submitted)
         self._lengths[slot] = p
         self._last_tok[slot] = next_tok
         self._temps[slot] = s.temperature
@@ -1392,6 +1422,78 @@ class LLMEngine:
             if r.done.is_set() and r.consumed:
                 del self._requests[rid]
 
+    # ------------------------------------------------------------------
+    # metrics (best effort: the engine also runs without a runtime, where
+    # the metrics store is unreachable)
+    # ------------------------------------------------------------------
+    def _ensure_metrics(self):
+        if self._metrics is None:
+            from ray_tpu_torch.util import metrics as um
+
+            self._metrics = {
+                "tokens": um.Meter("serve_tokens",
+                                   "Tokens generated by the decode engine"),
+                "requests": um.Meter("serve_requests",
+                                     "Requests completed by the engine"),
+                "inflight": um.Gauge("serve_inflight_requests",
+                                     "Active + queued engine requests"),
+                "occupancy": um.Gauge("serve_batch_occupancy",
+                                      "Active slots / max_slots"),
+                "pages_in_use": um.Gauge("serve_kv_pages_in_use",
+                                         "KV cache pages allocated"),
+                "pages_free": um.Gauge("serve_kv_pages_free",
+                                       "KV cache pages free"),
+                "tokens_per_s": um.Gauge("serve_tokens_per_s",
+                                         "Engine decode throughput"),
+                "prefix_hits": um.Meter(
+                    "serve_prefix_hit_pages",
+                    "KV pages adopted from the prefix cache"),
+                "spec_accept": um.Gauge(
+                    "serve_spec_acceptance",
+                    "Speculative-decode acceptance rate (accepted / "
+                    "proposed draft tokens)"),
+                "queue_wait": um.Histogram(
+                    "serve_queue_wait_s", "Submit-to-admission wait",
+                    boundaries=(0.001, 0.01, 0.1, 1.0, 10.0)),
+            }
+
+    def _observe_queue_wait(self, wait_s: float):
+        try:
+            self._ensure_metrics()
+            self._metrics["queue_wait"].observe(wait_s)
+        except Exception:
+            pass
+
+    def _flush_metrics(self):
+        now = time.monotonic()
+        if now - self._metrics_flush < 2.0:
+            return
+        self._metrics_flush = now
+        try:
+            self._ensure_metrics()
+            m, st = self._metrics, self._stats
+            m["tokens"].mark(st["tokens"] - m["tokens"].total())
+            m["requests"].mark(st["completed"] - m["requests"].total())
+            m["prefix_hits"].mark(
+                st["prefix_hit_pages"] - m["prefix_hits"].total())
+            if st.get("spec_proposed", 0):
+                m["spec_accept"].set(
+                    st["spec_accepted"] / st["spec_proposed"])
+            with self._lock:
+                inflight = int(self._active.sum()) + len(self._pending)
+                occ = float(self._active.sum()) / self.max_slots
+            m["inflight"].set(inflight)
+            m["occupancy"].set(occ)
+            pool = self.pool.stats()
+            m["pages_in_use"].set(pool["in_use"])
+            m["pages_free"].set(pool["free"])
+            m["tokens_per_s"].set(st["tokens"] / max(1e-9,
+                                                     now - self._t0))
+            for meter in (m["tokens"], m["requests"], m["prefix_hits"]):
+                meter.flush()
+        except Exception:
+            pass
+
 
 # ---------------------------------------------------------------------------
 # The naive per-request baseline and build_model
@@ -1520,22 +1622,28 @@ def cache_namespace_for(model_kind: str, config_kw: Optional[dict],
 
 
 class LLMServer:
-    """Serve callable hosting one LLMEngine per replica, in-process.
+    """Serve deployment callable hosting one LLMEngine per replica.
+
+    Use with ``@serve.deployment``/``serve.run`` (a replica that needs the
+    card asks for it with ``ray_actor_options={"num_gpus": ...}``), or
+    in-process.  Entry points:
 
     - ``__call__({"tokens": [...], "max_new_tokens": n, "temperature": t,
       "top_p": p, "seed": s, "eos_id": e})`` answers a JSON request with
-      ``{"tokens": [...]}``;
+      ``{"tokens": [...]}`` (the HTTP path);
+    - ``generate_batch(refs, ...)``: the object-plane path (prompt refs in
+      through ``get_many``, output refs back through ``put_many``); pair
+      it with :func:`generate_many` on the client;
     - ``submit_stream``/``next_chunk``: pull-based token streaming;
     - ``swap_weights``, ``generate_rollouts``, ``request_stats``: the
-      RLHF generation surface.
+      RLHF generation surface;
+    - ``autoscale_metric``: in-flight work per decode slot, for the
+      controller's ``metric_method`` mode.
 
     ``draft_config_kw`` (+ ``spec_tokens``) turns on speculative decoding
     with a draft built from the same seed; ``prefix_cache=True`` the local
-    prefix cache; ``prefill=`` (a ``PrefillWorker``) disaggregated
-    prefill.  As a Serve deployment over the actor runtime, with the
-    object-plane batch path (``generate_batch``, ``generate_many``) and
-    the autoscaling metric, it waits for the Serve control plane (ROADMAP
-    Queue 1 item 9); those entry points raise."""
+    prefix cache; ``prefill=`` (a ``PrefillWorker``, its actor handle, or
+    a ``PrefillWorker`` deployment's handle) disaggregated prefill."""
 
     def __init__(self, model_kind: str = "gpt2",
                  config_kw: Optional[dict] = None, seed: int = 0,
@@ -1573,12 +1681,29 @@ class LLMServer:
     def generate_batch(self, prompts, max_new_tokens: int = 16,
                        eos_id: Optional[int] = None, as_refs: bool = True,
                        sampling: Optional[list] = None):
-        raise NotImplementedError(
-            f"generate_batch (the object-plane batch path) {_SERVE}")
+        """Generate for a prompt batch (token lists or refs to them) with
+        every prompt in flight together; returns refs to int32 arrays of
+        the outputs (``as_refs``), else the token lists."""
+        import ray_tpu_torch
+
+        prompts = _resolve_prompts(prompts)
+        if sampling is None:
+            sampling = [None] * len(prompts)
+        rids = [self.engine.submit(p, max_new_tokens, eos_id, sampling=s)
+                for p, s in zip(prompts, sampling)]
+        outs = [self.engine.result(r, timeout=120.0) for r in rids]
+        if not as_refs:
+            return outs
+        return ray_tpu_torch.put_many([np.asarray(o, np.int32)
+                                       for o in outs])
 
     def submit_stream(self, prompt, max_new_tokens: int = 16,
                       eos_id: Optional[int] = None,
                       sampling: Optional[SamplingParams] = None) -> int:
+        if _is_object_ref(prompt):
+            import ray_tpu_torch
+
+            prompt = ray_tpu_torch.get(prompt)
         return self.engine.submit(prompt, max_new_tokens, eos_id,
                                   sampling=sampling)
 
@@ -1602,9 +1727,11 @@ class LLMServer:
     def generate_rollouts(self, prompts, max_new_tokens: int = 16,
                           eos_id: Optional[int] = None,
                           sampling: Optional[list] = None):
-        """Version-stamped rollouts (tokens + behavior logprobs)."""
+        """Version-stamped rollouts (tokens + behavior logprobs); takes
+        prompt refs like ``generate_batch``."""
         return self.engine.generate_rollouts(
-            prompts, max_new_tokens, eos_id, sampling=sampling)
+            _resolve_prompts(prompts), max_new_tokens, eos_id,
+            sampling=sampling)
 
     def stats(self) -> dict:
         return self.engine.stats()
@@ -1613,19 +1740,63 @@ class LLMServer:
         return self.engine.request_stats(rid)
 
     def autoscale_metric(self) -> float:
-        raise NotImplementedError(
-            f"autoscale_metric (LLMServer as a Serve deployment) {_SERVE}")
+        """Engine-load signal for the controller's ``metric_method``
+        autoscaling mode: in-flight work per decode slot (1.0 = every
+        slot of the replica's batch is busy)."""
+        st = self.engine.stats()
+        return (st["active"] + st["pending"]
+                + st["prefill_inflight"]) / self.engine.max_slots
 
     def drain(self):
         """Teardown: close the engine (fails in-flight requests with a
-        typed error)."""
+        typed error) and any replica-local batchers."""
         self.engine.close()
+        from ray_tpu_torch.serve import batching
+
+        batching.close_instance_batchers(self)
         return True
+
+
+def _resolve_prompts(prompts) -> list:
+    """Prompts as token lists: prompts given as refs are fetched with one
+    ``get_many``."""
+    prompts = list(prompts)
+    if prompts and _is_object_ref(prompts[0]):
+        import ray_tpu_torch
+
+        prompts = ray_tpu_torch.get_many(prompts)
+    return prompts
 
 
 def generate_many(handle, prompts, max_new_tokens: int = 16,
                   eos_id: Optional[int] = None,
                   sampling: Optional[List[SamplingParams]] = None,
                   timeout: float = 120.0) -> List[List[int]]:
-    """The client half of the object-plane request path."""
-    raise NotImplementedError(f"generate_many {_SERVE}")
+    """The client half of the object-plane request path: prompts are
+    grouped by their prefix affinity key (so shared-prefix requests land
+    on the replica that holds their cached pages), each group is put with
+    one ``put_many`` and sent in one ``generate_batch`` call carrying the
+    refs, and the outputs come back through one ``get_many`` a group.
+    The whole batch rides one trace, rooted at a
+    ``serve.generate_many`` span."""
+    import ray_tpu_torch
+    from ray_tpu_torch.util import tracing
+
+    with tracing.span("serve.generate_many", requests=len(prompts)):
+        groups: Dict[str, List[int]] = {}
+        for i, p in enumerate(prompts):
+            groups.setdefault(pc.affinity_key(p), []).append(i)
+        out: List[Optional[List[int]]] = [None] * len(prompts)
+        calls = []
+        for key, idxs in groups.items():
+            refs = ray_tpu_torch.put_many(
+                [np.asarray(prompts[i], np.int32) for i in idxs])
+            samp = [sampling[i] for i in idxs] if sampling else None
+            calls.append((idxs, handle.method("generate_batch").remote(
+                refs, max_new_tokens, eos_id, True, samp, _affinity=key)))
+        for idxs, call in calls:
+            out_refs = ray_tpu_torch.get(call, timeout=timeout)
+            vals = ray_tpu_torch.get_many(out_refs, timeout=timeout)
+            for i, v in zip(idxs, vals):
+                out[i] = [int(t) for t in v]
+        return out

@@ -15,17 +15,14 @@ Copied from the JAX package, which the port may not import:
   of the model (on ``device``: CUDA unless ``device="cpu"``) and returns
   the pages of the uncached tail with the sampled next token;
 - ``_PrefillJob`` and ``PrefillClient`` with the ``"local"`` kind (the
-  worker's ``prefill`` runs on one background thread) and the
-  ``"actor"`` kind (a ``PrefillWorker`` actor of ``ray_tpu_torch``'s
-  runtime); the engine polls the job between decode steps;
+  worker's ``prefill`` runs on one background thread), the ``"actor"``
+  kind (a ``PrefillWorker`` actor of ``ray_tpu_torch``'s runtime) and
+  the ``"deployment"`` kind (the handle of a ``PrefillWorker`` Serve
+  deployment); the engine polls the job between decode steps;
 - the object plane: with ``use_object_plane`` (by default, when the
   process drives a runtime it started) the page arrays ride
   ``put_many`` and the payload carries their refs, which the client
   resolves with ``get_many``.
-
-Not ported: prefill through a Serve deployment (kind ``"deployment"``),
-which needs the Serve control plane (ROADMAP Queue 1 item 9); it raises,
-naming it.
 """
 from __future__ import annotations
 
@@ -39,8 +36,6 @@ import torch
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.serve.sampling import SamplingParams
 
-_SERVE = ("needs the Serve control plane, not ported yet (ROADMAP Queue 1 "
-          "item 9)")
 
 
 def _plane_up() -> bool:
@@ -275,9 +270,10 @@ class PrefillClient:
     """Engine-facing adapter over an in-process ``PrefillWorker`` (kind
     ``"local"``: the worker runs on one background thread, so prefill
     overlaps the engine's decode loop wherever the device or the host
-    has room) or a ``PrefillWorker`` actor handle (kind ``"actor"``: the
-    job is the call's ``ObjectRef``).  A Serve deployment handle (kind
-    ``"deployment"``) needs the Serve control plane and raises."""
+    has room), a ``PrefillWorker`` actor handle (kind ``"actor"``) or a
+    Serve ``DeploymentHandle`` of ``PrefillWorker`` replicas (kind
+    ``"deployment"``); for the last two the job is the call's
+    ``ObjectRef``."""
 
     def __init__(self, target):
         self._target = target
@@ -291,15 +287,15 @@ class PrefillClient:
         else:
             raise TypeError(
                 f"not a prefill target: {type(target).__name__} (need a "
-                "PrefillWorker or a PrefillWorker actor handle)")
-        if self._kind == "deployment":
-            raise NotImplementedError(
-                f"prefill through a deployment handle {_SERVE}")
+                "DeploymentHandle, an actor handle, or a PrefillWorker)")
 
     def submit(self, tokens, start: int,
                sampling: SamplingParams) -> _PrefillJob:
         args = (list(tokens), int(start), float(sampling.temperature),
                 float(sampling.top_p), int(sampling.seed))
+        if self._kind == "deployment":
+            return _PrefillJob(
+                self._target.method("prefill").remote(*args).future())
         if self._kind == "actor":
             return _PrefillJob(self._target.prefill.remote(*args).future())
         if self._pool is None:

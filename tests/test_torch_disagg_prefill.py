@@ -170,13 +170,53 @@ def test_int8_quantizer_equals_jax_numpy_mirror(shape, block):
 
 
 class _DeploymentLike:
+    """A deployment handle's surface: ``method(name).remote(*args)``
+    returns a ref whose ``future()`` the job polls."""
+
+    def __init__(self, worker):
+        self.worker = worker
+        self.calls = []
+
     def method(self, name):
-        raise AssertionError("never called")
+        handle = self
+
+        class _Ref:
+            def __init__(self, value):
+                self._value = value
+
+            def future(self):
+                from concurrent.futures import Future
+
+                f = Future()
+                f.set_result(self._value)
+                return f
+
+        class _Method:
+            def remote(self, *args):
+                handle.calls.append(name)
+                return _Ref(getattr(handle.worker, name)(*args))
+
+        return _Method()
 
 
 def test_deployment_kind_raises_naming_the_serve_control_plane():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tprefill.PrefillClient(_DeploymentLike())
+    """The Serve control plane is ported: a deployment handle is the
+    ``"deployment"`` kind, and a job sent through it calls the replicas'
+    ``prefill`` and gives what the worker gives in-process."""
+    worker = tprefill.PrefillWorker("gpt2", {"tiny": True, "num_layers": 1,
+                                             "dtype": torch.float32}, 0,
+                                    page_size=8, device="cpu",
+                                    use_object_plane=False)
+    handle = _DeploymentLike(worker)
+    client = tprefill.PrefillClient(handle)
+    assert client._kind == "deployment"
+    tokens = list(range(1, 20))
+    got = client.submit(tokens, 0, tprefill.SamplingParams()).poll()
+    want = tprefill._resolve_payload(worker.prefill(tokens, 0, 0.0, 1.0, 0))
+    assert handle.calls == ["prefill"]
+    assert got[2] == want[2]
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 
 
 # ---------------------------------------------------------------------------

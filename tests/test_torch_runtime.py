@@ -307,3 +307,31 @@ def test_a_worker_writes_a_stored_tensor_as_it_writes_a_stored_array(rt):
     port._worker()._value_cache.clear()
     t2, a2 = port.get(refs, timeout=T)
     assert torch.equal(t2, t + 1) and np.array_equal(a2, a + 1)
+
+
+@port_only
+def test_a_recycled_segment_outlives_a_reader_that_exits(rt):
+    """The driver's large puts recycle one pool segment under one name,
+    and a reader attaches it again for each object.  Python 3.12
+    registers every attach with the reader's resource tracker: a
+    registration left from the second attach would unlink the segment
+    when the reader exits, and the next reader of the recycled segment
+    would find the object gone."""
+    port = rt
+
+    @port.remote
+    class Reader:
+        def total(self, x):
+            return float(x.sum())
+
+    a = Reader.remote()
+    for v in range(3):
+        ref = port.put(np.full(1 << 20, v, np.float32))  # 4 MiB: pooled
+        assert port.get(a.total.remote(ref), timeout=T) == float(v << 20)
+        del ref
+    port.kill(a)
+    time.sleep(1.0)  # the reader's tracker cleans up after it
+    ref = port.put(np.full(1 << 20, 5, np.float32))
+    b = Reader.remote()
+    assert port.get(b.total.remote(ref), timeout=T) == float(5 << 20)
+    port.kill(b)
