@@ -55,7 +55,11 @@ three main paths with random weights from a seed:
   ``data.from_numpy``, the batches through ``get_dataset_shard`` ->
   ``iter_device_batches``; 12 launches of each kernel a step in the
   worker, and at 1k the losses bit for bit those of the same steps on the
-  same batches in this process), then actor-mode RL: ``[ppo-actor]``
+  same batches in this process), ``[zero]`` (``bench_gpt2``'s third fit,
+  ZeRO-2 with the int8 wire through ``compile_zero_step``, one worker over
+  NCCL: world 1, so the update is the plain one and its losses equal
+  ``[trainer]``'s bit for bit; one step profiled by kernel group), then
+  actor-mode RL: ``[ppo-actor]``
   (``bench_ppo_real_env``'s configuration on CartPole-v1: 2 CPU rollout
   actors x 8 envs x 256 steps, the streaming sampler with 2 fragments in
   flight a worker, the learner on the card; trained to reward 100, then
@@ -63,7 +67,17 @@ three main paths with random weights from a seed:
   publish times; only this process holds the card; the checkpoint round
   trip) and ``[impala-actor]`` (IMPALA, then APPO, 2 x 4 x 32 for 20
   iterations: finite losses, every env step, the weight lag within the
-  staleness bound);
+  staleness bound); in a second cluster, ``[dp2]``: two ranks at half
+  the card each over gloo (NCCL refuses two ranks on one device), ZeRO-2
+  through ``TorchTrainer`` on the fp32 and int8 wires (the ranks'
+  parameters bit-identical after every step, losses against one
+  worker's, the int8 wire's against the fp32 wire's, the parameters'
+  change against one worker's plain steps with a half-batch control
+  that must fail it, the optimizer bytes a replica, the sharded state saved at
+  world 2 and restored at world 1 here), ``ElasticMeshGroup`` at GPT-2
+  small shrinking on a preemption notice (bit for bit
+  ``reference_trajectory`` here) and ``DistributedLearnerGroup`` with
+  ``[ppo-actor]``'s learner;
 - training: GPT-2 small steps (bf16 compute over fp32 parameters,
   ``adamw(3e-4)``, ``make_train_step``) at the JAX bench's two shapes,
   B=16 x S=1024 and B=4 x S=4096, every layer running the forward with
@@ -122,6 +136,7 @@ import collections
 import concurrent.futures
 import copy
 import dataclasses
+import functools
 import itertools
 import json
 import os
@@ -129,6 +144,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -247,7 +263,7 @@ FP32_GRAD_REL = 1e-4
 # PPO: bench.py::bench_ppo_atari84 (:1085-1096) as it is, not cut.  The
 # gate is bench.py::_learn_to_floor's: one warm-up iteration, then the
 # CURRENT episode_reward_mean >= ATARI84_REWARD_FLOOR (bench.py:28) at an
-# iteration >= 10, within 150; then 8 timed iterations
+# iteration >= 10, within 150; then PPO_TIMED_ITERS timed iterations
 # (_measure_steps_per_s).
 PPO_ENVS, PPO_UNROLL = 2048, 64
 PPO_TRAINING = {"num_sgd_iter": 2, "sgd_minibatch_size": 8192, "lr": 5e-4,
@@ -255,14 +271,17 @@ PPO_TRAINING = {"num_sgd_iter": 2, "sgd_minibatch_size": 8192, "lr": 5e-4,
 PPO_PARAMS = 2_061_732  # the JAX module's count on Breakout-Atari84
 ATARI84_REWARD_FLOOR = 15.0
 PPO_MAX_ITERS = 150
-PPO_TIMED_ITERS = 8
+# Timed iterations after the floor (PPO, MinAtar PPO, IMPALA's gate
+# seed), few to keep the script within its time limit; each iteration
+# does the same work.
+PPO_TIMED_ITERS = 4
 # The module's logits and value on the card against the CPU, fp32 with TF32
 # off: the same sums (fan-in up to 7744) in other orders, ~1e-6 relative;
 # held to 1e-4 of each output's largest magnitude.
 PPO_MODULE_RTOL = 1e-4
 # The MinAtar-scale paths, at bench.py's configurations, not cut.
 # PPO: bench_ppo_breakout (:1127-1166), gated at BREAKOUT_REWARD_FLOOR
-# (bench.py:25) as _learn_to_floor gates it, then 8 timed iterations.
+# (bench.py:25) as _learn_to_floor gates it, then PPO_TIMED_ITERS timed.
 MINATAR_ENVS, MINATAR_UNROLL = 16384, 64
 MINATAR_PPO_TRAINING = {"num_sgd_iter": 2, "sgd_minibatch_size": 8192,
                         "lr": 5e-4, "entropy_coeff": 0.01}
@@ -271,11 +290,13 @@ MINATAR_REWARD_FLOOR = 3.0
 # trained to the floor with the margin target; the first seed that reaches
 # the target ends the loop; throughput is timed on the best seed that met
 # the floor.  The budget is cut from the bench's 300 iterations a seed to
-# 150, to keep the script's time with the serving phases: on the H100 the
-# rewards of seeds 0 and 1 stop rising near 1.49 by iteration 110, and
-# seed 2 passes the floor at iteration 100 (PERF.md, section 6).
+# 110, to keep the script's time with the serving and data-parallel
+# phases: on the H100 (cuDNN deterministic, so every run repeats them)
+# the rewards of seeds 0 and 1 stop rising near 1.48-1.49 by iteration
+# 110, and seed 2 passes the floor at iteration 100 and reads 1.64 at
+# 110 (PERF.md, section 6).
 IMPALA_TRAINING = {"lr": 2e-3, "entropy_coeff": 0.01}
-IMPALA_FLOOR, IMPALA_TARGET, IMPALA_MAX_ITERS = 1.5, 1.8, 150
+IMPALA_FLOOR, IMPALA_TARGET, IMPALA_MAX_ITERS = 1.5, 1.8, 110
 IMPALA_SEEDS = (0, 1, 2)
 APPO_TIMED_ITERS = 10
 # LSTM and attention PPO on StatelessCartPole: the tuned example
@@ -1325,12 +1346,15 @@ def worker_setup() -> dict:
             "libs": libs, "cudart": cudart_libs(), "jax": jax_modules()}
 
 
-def check_worker_setup(tag, setup) -> None:
-    """The worker saw the card as device 0, loaded every kernel from the
-    driver's build directory against one CUDA runtime, and no module of
-    the JAX package."""
+def check_worker_setup(tag, setup, shared=False) -> None:
+    """The worker saw the card as device 0 (its own partition; a worker
+    holding a share of the card keeps this process's view), loaded every
+    kernel from the driver's build directory against one CUDA runtime,
+    and no module of the JAX package."""
     build_dir = str(_build.BUILD_DIR)
-    if setup["visible"] != "0" or setup["jax"] or len(setup["libs"]) != \
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES") if shared else "0"
+    if setup["visible"] != visible or setup["jax"] or \
+            len(setup["libs"]) != \
             len(_build.SIGNATURES) or not all(
                 lib.startswith(build_dir) for lib in setup["libs"]) or \
             len(setup["cudart"]) != 1:
@@ -1703,15 +1727,20 @@ def trainer_loop(config):
     port, run by TorchTrainer's worker: the batches come from the dataset
     shard through iter_device_batches (pinned memory, a side stream), the
     steps are ``train_steps``'.  Reports the bench's keys and what the
-    driver's checks read, the worker's process start among them."""
+    driver's checks read, the worker's process start among them.  With
+    ``config["zero"]`` the step is bench.py's ZeRO branch
+    (``compile_zero_step``) and one more step is profiled by
+    ``ZERO_STEP_GROUPS``."""
     started = time.time()
     from ray_tpu_torch.air import session
 
     torch.set_float32_matmul_precision("highest")
     b, length, iters = config["batch"], config["seq"], config["iters"]
     stream = session.get_dataset_shard("train").iter_device_batches(b)
+    zero = config.get("zero")
     run = train_steps(b, length, iters,
-                      batches=(batch["tokens"] for batch in stream))
+                      batches=(batch["tokens"] for batch in stream),
+                      zero=zero, groups=ZERO_STEP_GROUPS if zero else None)
     stream.close()
     tokens_per_s, mfu, _ = train_rates(run, b, length, iters)
     ended = time.time()
@@ -1730,8 +1759,8 @@ def phase_trainer(card, train, actor_rates) -> dict:
     ingest: the worker launches each kernel 12 times a step from the
     driver's build, its losses pass [train]'s checks, and at 1k they equal
     this process's steps on the same batches bit for bit.  Returns the
-    fits' launches."""
-    out = {}
+    fits' launches and their runs."""
+    out, runs = {}, {}
     for b, length, iters in TRAINER_FITS:
         tag = f"B={b} S={length}"
         tokens = trainer_tokens(b, length, iters)
@@ -1801,7 +1830,585 @@ def phase_trainer(card, train, actor_rates) -> dict:
             f"{' '.join(f'{x:.4f}' for x in run['losses'])}; launches "
             f"{run['launches']}; peak memory {run['peak_gib']:.1f} GiB")
         out[f"trainer {tag}"] = run["launches"]
+        runs[tag] = run
+    return out, runs
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism: [zero] (bench_gpt2's ZeRO phase, one worker over NCCL)
+# and [dp2] (two ranks sharing the card over gloo)
+# ---------------------------------------------------------------------------
+# [zero]: bench.py:226-255, the third fit: [trainer]'s 1k fit with
+# zero_sharding="opt+grads" and quantized_collectives="int8".  At world 1
+# the update is the plain one (no collective), so its losses on
+# [trainer]'s batches must equal [trainer]'s within TRAINER_LOSS_ATOL.
+ZERO_CONFIG = {"zero_sharding": "opt+grads", "quantized": "int8"}
+# Device time of one ZeRO step by kernel name (first match): the flash
+# kernels, AdamW's multi-tensor kernels, copies and dtype casts (the flat
+# vector's split and merge, the weights' bf16 casts, the logits' fp32
+# one), cuBLAS's matmuls, the rest elementwise.
+ZERO_STEP_GROUPS = (("flash", ("flash_",)),
+                    ("optimizer", ("multi_tensor_apply",)),
+                    ("copy/cast", ("Memcpy", "Memset", "CatArrayBatchedCopy",
+                                "copy_kernel", "direct_copy")),
+                    ("matmul", ("gemm", "xmma", "cutlass", "nvjet",
+                                "sm90_")),
+                    ("elementwise", ("elementwise", "vectorized", "reduce",
+                                     "softmax", "norm", "Norm", "nll",
+                                     "cross_entropy", "index", "gelu")))
+# [dp2]: two TorchTrainer workers at half a card each, over gloo, on
+# [trainer]'s 1k batches (the global batch 16 x 1024, 8 rows a rank):
+# a warm-up step and DP2_STEPS steps with the fp32 wire, then with the
+# int8 wire; after the fp32 leg the sharded optimizer state is saved at
+# world 2, two more steps are taken, and the driver restores the save at
+# world 1 and takes the same two steps.
+DP2_GPUS = 0.5
+DP2_STEPS = 5
+# The fp32 wire's losses against one worker's plain steps on the same
+# global batches ([trainer]'s), and the world-1 restore's two losses
+# against the 2-rank run's: two B=8 halves in bf16 against one B=16
+# batch (other matmul shapes, so other roundings) averaged in fp32.
+# Measured 1.45e-4 and 1.14e-5 (H100 80GB HBM3, 700 W; PERF.md, section
+# 6); the bound is 10x the larger.
+DP2_LOSS_ATOL = 2e-3
+# test_zero.py::test_gpt2_int8_collectives_loss_envelope's envelope.
+INT8_ENVELOPE = 0.05
+# The int8 wire's losses against the fp32 wire's at every step: 10x the
+# largest gap read on the H100 80GB HBM3 at 700 W (5.34e-5, PERF.md,
+# section 6).  Over the window the loss moves only ~0.011, so a wire that
+# brought back zero gradients would end ~0.01 off.
+INT8_WIRE_ATOL = 5e-4
+# The parameters' change over a leg's DP2_STEPS + 1 updates against one
+# worker's plain steps on the same global batches, |theta_leg -
+# theta_plain| / |theta_plain - theta_0|: a number that moves with every
+# element of the update, where the loss moves little.  The control (one
+# worker's plain steps on rank 0's half of each batch: the update a rank
+# makes when the wire brings back only its own gradient) must fail it.
+# Read 0.0490 (fp32 wire), 0.0601 (int8 wire) and 0.958 (the control) on
+# the H100 80GB HBM3 at 700 W (PERF.md, section 6); the bound is 3x the
+# larger wire reading.
+DP2_CHANGE_RTOL = 0.18
+ZERO_OPT_RATIO = 0.51
+# ElasticMeshGroup at GPT-2 small: 4 slots of 2 x 1024, two ranks at
+# half a card, a preemption notice at step 3, one rank to step 6; the
+# parameters bit for bit reference_trajectory's in this process.
+ELASTIC_SLOTS, ELASTIC_ROWS, ELASTIC_STEPS, ELASTIC_NOTICE = 4, 2, 6, 3
+# DistributedLearnerGroup(num_hosts=2) with [ppo-actor]'s learner (the
+# CartPole module, PPO's loss, lr 3e-4) for 10 updates on one batch of
+# 512 CartPole transitions, against one TorchLearner on the same batch:
+# two halves' mean gradients averaged against one mean, in fp32
+# (measured 2.2e-7 on the H100 80GB HBM3 at 700 W; PERF.md, section 6).
+LEARNER_UPDATES, LEARNER_ROWS = 10, 512
+LEARNER_RTOL = 1e-5
+# The second cluster's object store: the elastic gang's boundary snapshot
+# (GPT-2 small's fp32 parameters and Adam moments, ~1.5 GB) goes through
+# it twice.
+DP2_STORE_BYTES = 8 * 1024 ** 3
+
+
+def zero_train_step(model, zero_sharding, quantized):
+    """``make_train_step``'s counterpart through ``compile_zero_step`` over
+    this process's group (``get_mesh``), adamw(3e-4): ``step(batch) ->
+    loss`` with the memory and wire envelope, the parameters, the
+    optimizer share and the mesh beside it."""
+    from ray_tpu_torch.train.torch import compile_zero_step, get_mesh
+
+    params = dict(model.named_parameters())
+    mesh = get_mesh()
+
+    def grad_fn(p, batch):
+        loss = gpt2_loss_fn(model, batch)
+        return loss, dict(zip(p, torch.autograd.grad(loss,
+                                                     list(p.values()))))
+
+    zstep, opt, info = compile_zero_step(
+        grad_fn, lambda ps: adamw(ps, 3e-4), params, mesh,
+        zero_sharding=zero_sharding, quantized_collectives=quantized)
+    holder = [opt]
+
+    def step(batch):
+        _, holder[0], loss = zstep(params, holder[0], batch)
+        return loss
+
+    return types.SimpleNamespace(step=step, info=info, params=params,
+                                 opt=holder, mesh=mesh)
+
+
+def phase_zero(card, trainer_runs) -> dict:
+    """bench_gpt2's ZeRO fit through TorchTrainer, one worker over NCCL:
+    [trainer]'s checks, the losses against [trainer]'s 1k run, the
+    memory and wire envelope, and one profiled step by kernel group.
+    Returns the fit's launches."""
+    b, length, iters = TRAINER_FITS[0]
+    tag = f"B={b} S={length}"
+    t0 = time.time()
+    result = TorchTrainer(
+        trainer_loop,
+        train_loop_config={"batch": b, "seq": length, "iters": iters,
+                           "zero": ZERO_CONFIG},
+        datasets={"train": rdata.from_numpy(
+            {"tokens": trainer_tokens(b, length, iters)}, parallelism=8)},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True)).fit()
+    fit_s = time.time() - t0
+    if result.error is not None:
+        raise AssertionError(f"[zero] {tag}: {result.error}")
+    m = result.metrics
+    run, info, prof = m["run"], m["run"]["info"], m["run"]["profile"]
+    check_worker_setup(f"[zero] {tag}", m["setup"])
+    tokens_per_s, mfu, _ = check_train(f"[zero] {tag}", run, b, length,
+                                       iters)
+    local = trainer_runs[tag]
+    diff = max(abs(x - y) for x, y in zip(run["losses"], local["losses"]))
+    bitwise = run["losses"] == local["losses"]
+    if not diff <= TRAINER_LOSS_ATOL:
+        raise AssertionError(f"[zero] losses {run['losses']} vs [trainer]'s "
+                             f"{local['losses']}")
+    if not info["zero_opt_bytes_per_replica"] <= \
+            info["replicated_opt_bytes"]:
+        raise AssertionError(f"[zero] envelope {info}")
+    step_ms = run["seconds"] / iters * 1e3
+    t_rate, t_mfu, _ = train_rates(local, b, length, local["iters"])
+    groups = ", ".join(f"{g} {ms:.1f}" for g, ms in sorted(
+        prof["groups"].items(), key=lambda kv: -kv[1]))
+    top = "; ".join(f"{name[:60]} x{n} {ms:.1f} ms"
+                    for name, (n, ms) in prof["top"])
+    note("zero", ms_per_step=step_ms, tokens_per_s=tokens_per_s, mfu=mfu,
+         trainer_ms_per_step=local["seconds"] / local["iters"] * 1e3,
+         bitwise=bitwise, device_ms=prof["device_ms"],
+         **{f"{g}_ms": ms for g, ms in prof["groups"].items()},
+         zero_opt_bytes_per_replica=info["zero_opt_bytes_per_replica"],
+         replicated_opt_bytes=info["replicated_opt_bytes"],
+         grad_comm_bytes_per_step=info["grad_comm_bytes"],
+         grad_comm_reduction_vs_fp32=info["grad_comm_reduction_vs_fp32"])
+    log(f"[zero] {card} | GPT-2 small {tag} through TorchTrainer, one worker"
+        f" over NCCL, zero_sharding=opt+grads, quantized_collectives=int8 "
+        f"(world 1: the plain update on the flat shard, no collective): "
+        f"{iters} steps {run['seconds']:.3f} s = {step_ms:.1f} ms/step, "
+        f"{tokens_per_s:.0f} tokens/s, MFU {mfu:.4f}; [trainer] "
+        f"{local['seconds'] / local['iters'] * 1e3:.1f} ms/step, "
+        f"{t_rate:.0f} tokens/s, MFU {t_mfu:.4f}; max |loss - [trainer]'s "
+        f"on the same batches| {diff:.3g} (bitwise {bitwise}, bound "
+        f"{TRAINER_LOSS_ATOL}); zero_opt_bytes_per_replica "
+        f"{info['zero_opt_bytes_per_replica']}, replicated_opt_bytes "
+        f"{info['replicated_opt_bytes']}, grad_comm_bytes_per_step "
+        f"{info['grad_comm_bytes']:.0f}, grad_comm_reduction_vs_fp32 "
+        f"{info['grad_comm_reduction_vs_fp32']:.2f}; launches "
+        f"{run['launches']}; peak memory {run['peak_gib']:.1f} GiB; fit "
+        f"{fit_s:.1f} s")
+    log(f"[zero] {card} | one profiled ZeRO step: device "
+        f"{prof['device_ms']:.1f} ms, {prof['device_ms'] / step_ms:.1%} of a"
+        f" timed step ({prof['wall_ms']:.1f} ms of wall time under the "
+        f"profiler), {prof['device_ops']} device ops, "
+        f"{prof['launch_calls']} launch calls; by group (ms): {groups}; "
+        f"top: {top}")
+    return {"zero": run["launches"]}
+
+
+def param_hash(params) -> int:
+    """A hash of the parameters' bits on the card: each fp32 word as an
+    integer times a fixed weight, summed in int64 (exact, so the order of
+    the sum does not matter)."""
+    total = 0
+    for i, p in enumerate(params.values()):
+        bits = p.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + i + 1
+        total = total + (bits * w).sum()
+    return int(total.item()) % 2 ** 63
+
+
+def dp2_loop(config):
+    """One of two ranks sharing the card over gloo: the ZeRO-2 step on
+    this rank's half of [trainer]'s 1k batches, the fp32 wire then the
+    int8 wire, each from the seeded weights: a warm-up step, then
+    DP2_STEPS timed steps, a hash of the parameters after every step;
+    rank 0 saves each leg's parameters.  After the fp32 leg the
+    optimizer shard is saved and two more steps are taken."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.parallel import zero as zero_mod
+    from ray_tpu_torch.train.torch import prepare_batch
+
+    torch.set_float32_matmul_precision("highest")
+    b, length = config["batch"], config["seq"]
+    tokens = trainer_tokens(b, length, TRAINER_FITS[0][2])
+    out = {}
+    for wire in ("off", "int8"):
+        model = build_model("gpt2", {"tiny": False,
+                                     "max_position_embeddings":
+                                     max(1024, length)}, seed=SEED)
+        zs = zero_train_step(model, "opt+grads", wire)
+        batches = [prepare_batch({"input_ids": torch.from_numpy(
+            tokens[i * b:(i + 1) * b])}, zs.mesh)["input_ids"].to("cuda")
+            for i in range(DP2_STEPS + 3)]
+        losses = [zs.step({"input_ids": batches[0]})]
+        hashes = [param_hash(zs.params)]
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(1, DP2_STEPS + 1):
+            losses.append(zs.step({"input_ids": batches[i]}))
+            hashes.append(param_hash(zs.params))
+        seconds = time.perf_counter() - t0
+        launches = dict(attn.LAUNCHES)
+        both = [None, None]
+        dist.all_gather_object(both, (hashes, launches))
+        leg = {"losses": torch.stack(losses).tolist(), "hashes": hashes,
+               "peer_hashes": both[1][0], "seconds": seconds,
+               "launches": launches,
+               "launches_both": {k: both[0][1][k] + both[1][1][k]
+                                 for k in launches},
+               "info": zs.info, "rows": batches[0].shape[0]}
+        if zs.mesh.rank == 0:
+            torch.save({k: v.detach().cpu() for k, v in zs.params.items()},
+                       os.path.join(config["root"], f"params_{wire}.pt"))
+        if wire == "off":
+            t0 = time.perf_counter()
+            zero_mod.save_opt_shard(config["root"], 1, zs.opt[0])
+            leg["save_s"] = time.perf_counter() - t0
+            leg["next"] = [zs.step({"input_ids": batches[i]}).item()
+                           for i in (DP2_STEPS + 1, DP2_STEPS + 2)]
+        out[wire] = leg
+        del model, zs, batches
+        torch.cuda.empty_cache()
+    out["setup"] = worker_setup()
+    session.report(out)
+
+
+def restore_one_rank(root, tokens, b) -> list:
+    """The [dp2] save restored at world 1 in this process (no process
+    group: ``compile_zero_step``'s world-1 path): its parameters and its
+    optimizer state re-chunked from two shards to one, then the two steps
+    the 2-rank run took after the save, on the same global batches."""
+    from ray_tpu_torch.parallel import zero as zero_mod
+
+    model = build_model("gpt2", {"tiny": False,
+                                 "max_position_embeddings": 1024}, seed=SEED)
+    saved = torch.load(os.path.join(root, "params_off.pt"))
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(saved[k])
+    zs = zero_train_step(model, "opt+grads", "off")
+    opt = zs.opt[0]
+    opt.load_global_tree(zero_mod.restore_opt_state(
+        root, opt.sharder, lambda ps: adamw(ps, 3e-4)))
+    out = [zs.step({"input_ids": torch.from_numpy(
+        tokens[i * b:(i + 1) * b]).to("cuda")}).item()
+        for i in (DP2_STEPS + 1, DP2_STEPS + 2)]
+    del model, zs
+    torch.cuda.empty_cache()
     return out
+
+
+def parameter_change(root, tokens, b) -> dict:
+    """Each [dp2] leg's parameters against one worker's plain steps on
+    the same global batches, here at world 1 (``compile_zero_step``'s
+    plain update): |theta_leg - theta_plain| / |theta_plain - theta_0|
+    after DP2_STEPS + 1 updates, for the fp32 and int8 wires and for the
+    control, one worker's plain steps on rank 0's half of each batch."""
+    kw = {"tiny": False, "max_position_embeddings": 1024}
+
+    def plain(rows, start=None):
+        model = build_model("gpt2", kw, seed=SEED)
+        if start is not None:
+            start.update({k: p.detach().clone()
+                          for k, p in model.named_parameters()})
+        zs = zero_train_step(model, "opt+grads", "off")
+        for i in range(DP2_STEPS + 1):
+            zs.step({"input_ids": torch.from_numpy(
+                tokens[i * b:i * b + rows]).to("cuda")})
+        out = {k: p.detach().clone() for k, p in zs.params.items()}
+        del model, zs
+        torch.cuda.empty_cache()
+        return out
+
+    def dist(x, y):
+        return sum(float((x[k].double() - y[k].to(x[k].device).double())
+                         .pow(2).sum()) for k in x) ** 0.5
+
+    theta0 = {}
+    full = plain(b, theta0)
+    scale = dist(full, theta0)
+    out = {"change_norm": scale,
+           "control": dist(plain(b // 2), full) / scale}
+    for wire in ("off", "int8"):
+        leg = torch.load(os.path.join(root, f"params_{wire}.pt"))
+        out[wire] = dist(full, leg) / scale
+    del theta0, full
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp2_driver_runs(root, tokens, b, fns) -> tuple:
+    """[dp2]'s runs in this process: the 2 -> 1 restore, the parameter
+    change against one worker's plain steps, and reference_trajectory
+    with its seconds."""
+    from ray_tpu_torch.parallel.elastic import reference_trajectory
+
+    restored = restore_one_rank(root, tokens, b)
+    change = parameter_change(root, tokens, b)
+    t0 = time.time()
+    ref = reference_trajectory(*fns, steps=ELASTIC_STEPS,
+                               slots=ELASTIC_SLOTS, world=1)
+    return restored, change, ref, time.time() - t0
+
+
+def elastic_problem():
+    """GPT-2 small as ``ElasticMeshGroup``'s functions: each process
+    builds the module once (seeded) and runs it with the given parameters
+    (``torch.func.functional_call``); bf16 compute over fp32 parameters,
+    adamw(3e-4); slots of ELASTIC_ROWS x 1024 seeded ids."""
+    kw = {"tiny": False, "max_position_embeddings": 1024}
+    cache = {}
+
+    def loss_fn(params, mb):
+        if "model" not in cache:
+            cache["model"] = build_model("gpt2", kw, seed=SEED)
+        model = cache["model"]
+        return gpt2_loss_fn(lambda ids: torch.func.functional_call(
+            model, params, (ids,)), mb)
+
+    def params_factory():
+        model = build_model("gpt2", kw, seed=SEED)
+        return {k: v.detach().cpu().numpy()
+                for k, v in model.named_parameters()}
+
+    def tx_factory():
+        return lambda ps: adamw(ps, 3e-4)
+
+    def batch_fn(step_idx):
+        rng = np.random.default_rng(SEED + 100 + step_idx)
+        return {"input_ids": rng.integers(
+            0, 50257, (ELASTIC_SLOTS, ELASTIC_ROWS, 1024))}
+
+    return loss_fn, params_factory, tx_factory, batch_fn
+
+
+def learner_factory():
+    """[ppo-actor]'s learner: the CartPole module, PPO's loss, lr 3e-4,
+    on the card."""
+    from ray_tpu_torch.rllib.algorithms.ppo import ppo_loss
+    from ray_tpu_torch.rllib.core.learner import TorchLearner
+
+    c = PPOConfig()
+    torch.manual_seed(SEED)
+    module = RLModuleSpec(obs_dim=4, num_actions=2).build()
+    return TorchLearner(module, functools.partial(
+        ppo_loss, clip_param=c.clip_param, vf_clip_param=c.vf_clip_param,
+        vf_loss_coeff=c.vf_loss_coeff,
+        entropy_coeff=PPO_ACTOR_TRAINING["entropy_coeff"]),
+        lr=PPO_ACTOR_TRAINING["lr"], device="cuda")
+
+
+def cartpole_batch() -> dict:
+    """LEARNER_ROWS CartPole transitions under a uniform random policy
+    (seeded), with discounted returns as value targets and their
+    standardised values as advantages."""
+    rng = np.random.default_rng(SEED)
+    env = PyCartPole(seed=SEED)
+    obs, rows, rewards, dones = env.reset(seed=SEED), [], [], []
+    for _ in range(LEARNER_ROWS):
+        action = int(rng.integers(2))
+        nxt, r, term, trunc, _ = env.step(action)
+        rows.append((obs, action))
+        rewards.append(r)
+        dones.append(term or trunc)
+        obs = env.reset() if (term or trunc) else nxt
+    ret, returns = 0.0, []
+    for r, d in zip(reversed(rewards), reversed(dones)):
+        ret = r + (0.0 if d else 0.99 * ret)
+        returns.append(ret)
+    returns = np.asarray(returns[::-1], np.float32)
+    adv = (returns - returns.mean()) / (returns.std() + 1e-8)
+    return {"obs": np.stack([o for o, _ in rows]).astype(np.float32),
+            "actions": np.asarray([a for _, a in rows], np.int64),
+            "action_logp": np.full(LEARNER_ROWS, np.log(0.5), np.float32),
+            "advantages": adv.astype(np.float32), "value_targets": returns}
+
+
+def learner_weights(state):
+    return state["learner"].get_weights()
+
+
+def phase_dp2(card, trainer_runs) -> dict:
+    """Two ranks sharing the card over gloo: ZeRO-2 through TorchTrainer
+    (fp32 and int8 wires: bit-identical ranks after every step, losses
+    against [trainer]'s, the optimizer bytes, the 2 -> 1 restore),
+    ElasticMeshGroup's notice shrink (bitwise against
+    reference_trajectory here) and DistributedLearnerGroup (bitwise
+    ranks, losses against one learner).  Timings are readings only: two
+    CUDA contexts time-slice the card.  Returns the ZeRO legs' launches."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.parallel.elastic import ElasticMeshGroup
+    from ray_tpu_torch.rllib.core.learner import (
+        DistributedLearnerGroup, metrics_to_host)
+
+    b, length, _ = TRAINER_FITS[0]
+    tag = f"B={b} S={length}"
+    plain = trainer_runs[tag]["losses"]
+    tokens = trainer_tokens(b, length, TRAINER_FITS[0][2])
+    fns = elastic_problem()
+    root = tempfile.mkdtemp(prefix="rttp_dp2_")
+    # The driver's own runs (the 2 -> 1 restore, the plain steps of the
+    # parameter-change check, reference_trajectory) go on the card beside
+    # the elastic gang, whose ranks are other processes: each run is
+    # deterministic, so sharing the card moves only the times.
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        t0 = time.time()
+        result = TorchTrainer(
+            dp2_loop, train_loop_config={"batch": b, "seq": length,
+                                         "root": root},
+            scaling_config=ScalingConfig(num_workers=2, use_gpu=True,
+                                         gpus_per_worker=DP2_GPUS)).fit()
+        fit_s = time.time() - t0
+        if result.error is not None:
+            raise AssertionError(f"[dp2] {result.error}")
+        m = result.metrics
+        check_worker_setup("[dp2]", m["setup"], shared=True)
+        fp32, int8 = m["off"], m["int8"]
+        info = fp32["info"]
+        # The reference gets functions of its own: each closure caches the
+        # module it builds, and the gang's are pickled at every rebuild.
+        driver = pool.submit(dp2_driver_runs, root, tokens, b,
+                             elastic_problem())
+        # ElasticMeshGroup: 2 ranks, a notice at step ELASTIC_NOTICE, 1 rank.
+        t0 = time.time()
+        emg = ElasticMeshGroup(*fns, num_hosts=(1, 2), slots=ELASTIC_SLOTS,
+                               resources_per_host={"CPU": 1,
+                                                   "GPU": DP2_GPUS},
+                               snapshot_interval=ELASTIC_STEPS + 1,
+                               bootstrap_timeout=GET_S)
+        try:
+            losses = emg.run(ELASTIC_NOTICE)
+            emg.preemption_notice(1)
+            losses += emg.run(ELASTIC_STEPS - ELASTIC_NOTICE)
+            stats = emg.stats()
+            params = emg.params_host()
+        finally:
+            emg.shutdown()
+        gang_s = time.time() - t0
+        restored, change, ref, ref_s = driver.result()
+    finally:
+        pool.shutdown(wait=True)
+        shutil.rmtree(root, ignore_errors=True)
+    for leg, name in ((fp32, "fp32"), (int8, "int8")):
+        if leg["hashes"] != leg["peer_hashes"]:
+            raise AssertionError(f"[dp2] {name} wire: the ranks' parameters "
+                                 f"differ: {leg['hashes']} vs "
+                                 f"{leg['peer_hashes']}")
+    n = len(fp32["losses"])
+    gap = max(abs(x - y) for x, y in zip(fp32["losses"], plain[:n]))
+    if not gap <= DP2_LOSS_ATOL:
+        raise AssertionError(f"[dp2] fp32 wire losses {fp32['losses']} vs "
+                             f"one worker's {plain[:n]}")
+    ratio = info["zero_opt_bytes_per_replica"] / info["replicated_opt_bytes"]
+    if not ratio <= ZERO_OPT_RATIO:
+        raise AssertionError(f"[dp2] optimizer bytes per replica {ratio:.3f}"
+                             f" of replicated: {info}")
+    envelope = abs(int8["losses"][-1] - fp32["losses"][-1])
+    wire_gap = max(abs(x - y) for x, y in zip(int8["losses"],
+                                               fp32["losses"]))
+    if not envelope < INT8_ENVELOPE or not wire_gap <= INT8_WIRE_ATOL or \
+            not int8["losses"][-1] < int8["losses"][0]:
+        raise AssertionError(f"[dp2] int8 wire {int8['losses']} vs fp32 "
+                             f"{fp32['losses']}")
+    if not (change["off"] <= DP2_CHANGE_RTOL and change["int8"] <=
+            DP2_CHANGE_RTOL < change["control"]):
+        raise AssertionError(f"[dp2] parameter change against one worker's"
+                             f" plain steps {change} (bound "
+                             f"{DP2_CHANGE_RTOL}; the control must exceed "
+                             f"it)")
+    restore_gap = max(abs(x - y) for x, y in zip(restored, fp32["next"]))
+    if not restore_gap <= DP2_LOSS_ATOL:
+        raise AssertionError(f"[dp2] world-1 restore {restored} vs the "
+                             f"2-rank run's {fp32['next']}")
+    note("dp2", fit_s=fit_s, fp32_s=fp32["seconds"], int8_s=int8["seconds"],
+         fp32_gap=gap, restore_gap=restore_gap, int8_envelope=envelope,
+         int8_wire_gap=wire_gap, change_norm=change["change_norm"],
+         change_rel_fp32=change["off"], change_rel_int8=change["int8"],
+         change_rel_control=change["control"], opt_ratio=ratio,
+         save_s=fp32["save_s"])
+    log(f"[dp2] {card} | two TorchTrainer workers at {DP2_GPUS} of the card"
+        f" each over gloo (two CUDA contexts time-slice the card: timings "
+        f"are readings, compared with nothing), GPT-2 small bf16, ZeRO-2, "
+        f"[trainer]'s 1k batches, {fp32['rows']} rows a rank: the ranks' "
+        f"parameter hashes equal after each of {n} steps on both wires; "
+        f"fp32 wire losses {' '.join(f'{x:.4f}' for x in fp32['losses'])}, "
+        f"max |loss - one worker's plain step| {gap:.3g} (bound "
+        f"{DP2_LOSS_ATOL}); int8 wire "
+        f"{' '.join(f'{x:.4f}' for x in int8['losses'])}, max "
+        f"{wire_gap:.3g} from the fp32 wire's (bound {INT8_WIRE_ATOL}; last "
+        f"step {envelope:.3g}, envelope {INT8_ENVELOPE}); the parameters' "
+        f"change over {n} updates, |theta - theta_plain| / |theta_plain - "
+        f"theta_0| against one worker's plain steps (|theta_plain - "
+        f"theta_0| = {change['change_norm']:.6g}): fp32 wire "
+        f"{change['off']:.6g}, int8 wire {change['int8']:.6g}, control "
+        f"(rank 0's half only) {change['control']:.6g} (bound "
+        f"{DP2_CHANGE_RTOL}, the control above it); "
+        f"zero_opt_bytes_per_replica {info['zero_opt_bytes_per_replica']} = "
+        f"{ratio:.4f} of replicated {info['replicated_opt_bytes']} (bound "
+        f"{ZERO_OPT_RATIO}); grad_comm_bytes {info['grad_comm_bytes']:.0f} "
+        f"fp32, {int8['info']['grad_comm_bytes']:.0f} int8 "
+        f"(x{int8['info']['grad_comm_reduction_vs_fp32']:.2f} vs the fp32 "
+        f"all-reduce); saved at world 2 ({fp32['save_s']:.2f} s), restored "
+        f"at world 1 in this process: the next two losses "
+        f"{' '.join(f'{x:.4f}' for x in restored)} vs the 2-rank run's "
+        f"{' '.join(f'{x:.4f}' for x in fp32['next'])} (max gap "
+        f"{restore_gap:.3g}, bound {DP2_LOSS_ATOL}); {DP2_STEPS} steps "
+        f"{fp32['seconds']:.2f} s fp32, {int8['seconds']:.2f} s int8 "
+        f"(rank 0's clock, hashing included); launches rank 0 "
+        f"{fp32['launches']}; fit {fit_s:.1f} s")
+
+    same = np.array_equal(np.asarray(losses, np.float64), ref["losses"]) \
+        and all(same_bits(params[k], ref["params"][k]) for k in params)
+    if stats["hosts"] != 1 or stats["elastic_notice_shrinks_total"] != 1 \
+            or stats["elastic_steps_lost_total"] != 0 or not same:
+        raise AssertionError(f"[dp2] elastic {stats}, losses {losses} vs "
+                             f"{ref['losses'].tolist()}, bitwise {same}")
+    note("dp2", elastic_gang_s=gang_s, elastic_reference_s=ref_s,
+         elastic_reshard_s=stats["elastic_reshard_seconds_total"])
+    log(f"[dp2] {card} | ElasticMeshGroup, GPT-2 small, {ELASTIC_SLOTS} "
+        f"slots of {ELASTIC_ROWS} x 1024, ranks at {DP2_GPUS} of the card: 2 "
+        f"ranks, a preemption_notice at step {ELASTIC_NOTICE}, 1 rank to "
+        f"step {ELASTIC_STEPS}; losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; parameters and losses bit "
+        f"for bit reference_trajectory's in this process ({same}); "
+        f"{stats['elastic_weight_puts_total']} weight puts, reshard "
+        f"{stats['elastic_reshard_seconds_total']:.1f} s; gang "
+        f"{gang_s:.1f} s, reference {ref_s:.1f} s")
+
+    # DistributedLearnerGroup: 2 ranks at half the card each.
+    batch = cartpole_batch()
+    t0 = time.time()
+    lg = DistributedLearnerGroup(learner_factory, num_hosts=2,
+                                 resources_per_host={"CPU": 1,
+                                                     "GPU": DP2_GPUS})
+    try:
+        got = [lg.update(batch)["total_loss"]
+               for _ in range(LEARNER_UPDATES)]
+        w0, w1 = lg.group.run_stateful(learner_weights, timeout=GET_S)
+    finally:
+        lg.shutdown()
+    group_s = time.time() - t0
+    single = learner_factory()
+    want = [metrics_to_host(single.update(batch))["total_loss"]
+            for _ in range(LEARNER_UPDATES)]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(got, want))
+    bitwise = all(same_bits(w0[k], w1[k]) for k in w0)
+    if not bitwise or not rel <= LEARNER_RTOL:
+        raise AssertionError(f"[dp2] learner group: ranks bitwise {bitwise},"
+                             f" losses {got} vs one learner's {want}")
+    note("dp2", learner_rel=rel, learner_group_s=group_s)
+    log(f"[dp2] {card} | DistributedLearnerGroup(num_hosts=2), [ppo-actor]'s"
+        f" learner at {DP2_GPUS} of the card a rank, {LEARNER_UPDATES} "
+        f"updates on {LEARNER_ROWS} CartPole transitions: ranks' weights bit"
+        f" for bit ({bitwise}); losses "
+        f"{' '.join(f'{x:.5f}' for x in got)}, max relative gap to one "
+        f"TorchLearner {rel:.3g} (bound {LEARNER_RTOL}); {group_s:.1f} s")
+    return {"dp2": fp32["launches_both"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2378,7 +2985,7 @@ RLHF_CONFIG = {"rollouts_per_step": 16, "max_new_tokens": RLHF_NEW,
                "entropy_coeff": 0.001, "seed": SEED}
 RLHF_ENGINE = {"max_slots": 16, "page_size": 16, "max_ctx": 1024}
 RLHF_GPUS = 0.5
-RLHF_TIMED_STEPS = 4
+RLHF_TIMED_STEPS = 3
 # Flash launches of a step, E epochs of M minibatches: the advantage
 # forward and each minibatch's forward run 12 layers of the forward; each
 # minibatch's backward 12 of dq and of dkv.
@@ -2702,7 +3309,8 @@ def phase_rlhf(card) -> dict:
     return {"rlhf": dict(launches)}
 
 
-def train_steps(b, length, iters, seed=SEED, batches=None) -> dict:
+def train_steps(b, length, iters, seed=SEED, batches=None, zero=None,
+                groups=None) -> dict:
     """GPT-2 small steps at B x S: bf16 compute over fp32 parameters,
     adamw(3e-4), on the ids ``batches`` yields (tensors on the card), or
     the same seeded ids every step (bench.py's synthetic branch).  One
@@ -2710,14 +3318,22 @@ def train_steps(b, length, iters, seed=SEED, batches=None) -> dict:
     last loss (bench.py:143-148).  The counts are zeroed just before each
     window and read just after it.  ``[train]`` runs this in the process,
     ``[actor-train]`` in a GPU actor, ``[trainer]`` in TorchTrainer's
-    worker on the dataset shard's batches."""
+    worker on the dataset shard's batches, ``[zero]`` there too with
+    ``zero`` (``zero_train_step``'s settings: the step through
+    ``compile_zero_step``) and ``groups`` (one more step, on the next
+    batch, profiled by those kernel groups)."""
     t0 = time.perf_counter()
     model = build_model("gpt2", {"tiny": False,
                                  "max_position_embeddings": max(1024, length)},
                         seed=seed)
     cfg = model.config
-    step = make_train_step(model, adamw(model.parameters(), 3e-4),
-                           gpt2_loss_fn)
+    info = None
+    if zero is None:
+        step = make_train_step(model, adamw(model.parameters(), 3e-4),
+                               gpt2_loss_fn)
+    else:
+        zs = zero_train_step(model, **zero)
+        step, info = zs.step, zs.info
     build_s = time.perf_counter() - t0
     if batches is None:
         ids = torch.from_numpy(np.random.default_rng(seed).integers(
@@ -2740,7 +3356,12 @@ def train_steps(b, length, iters, seed=SEED, batches=None) -> dict:
            "n_params": sum(p.numel() for p in model.parameters()),
            "iters": iters, "build_s": build_s, "warm_s": warm_s,
            "num_layers": cfg.num_layers, "hidden_size": cfg.hidden_size,
-           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "info": info}
+    if groups is not None:
+        ids = next(batches)
+        out["profile"] = profile_device(lambda: step({"input_ids": ids}),
+                                        groups)
     del model, step, losses
     torch.cuda.empty_cache()
     return out
@@ -3721,8 +4342,8 @@ def phase_envs():
 
 def phase_ppo_minatar(card) -> dict:
     """PPO on Breakout-MinAtar at bench_ppo_breakout's configuration:
-    trained to the floor, then 8 timed iterations, one env step profiled
-    (device ops)."""
+    trained to the floor, then PPO_TIMED_ITERS timed iterations, one env
+    step profiled (device ops)."""
     zero_launches()
     algo = (PPOConfig().environment("Breakout-MinAtar-v0")
             .anakin(num_envs=MINATAR_ENVS, unroll_length=MINATAR_UNROLL)
@@ -3790,8 +4411,8 @@ def _impala_line(tag, card, timed) -> str:
 
 def phase_impala(card) -> dict:
     """IMPALA on Breakout-MinAtar at bench_impala_breakout's protocol:
-    seeds in turn to the floor (margin target 1.8), 8 timed iterations on
-    the best seed past the floor."""
+    seeds in turn to the floor (margin target 1.8), PPO_TIMED_ITERS timed
+    iterations on the best seed past the floor."""
     zero_launches()
     gate_seed, gate_reward, timed, tried = None, float("-inf"), None, []
     for seed in IMPALA_SEEDS:
@@ -3940,11 +4561,21 @@ def main():
         train = timed("train", phase_train, card)
         actor_train, actor_rates = timed("actor-train", phase_actor_train,
                                          card, train)
-        trainer = timed("trainer", phase_trainer, card, train, actor_rates)
+        trainer, trainer_runs = timed("trainer", phase_trainer, card, train,
+                                      actor_rates)
+        trainer.update(timed("zero", phase_zero, card, trainer_runs))
         actor_rl = {"ppo-actor": timed("ppo-actor", phase_ppo_actor,
                                        card)["flash"],
                     "impala-actor": timed("impala-actor", phase_impala_actor,
                                           card)["flash"]}
+    finally:
+        ray_tpu_torch.shutdown()
+    # [dp2] in a cluster of its own: its elastic leg's boundary snapshot
+    # (GPT-2 small's parameters and Adam moments) needs a larger store.
+    ray_tpu_torch.init(num_cpus=RUNTIME_CPUS,
+                       object_store_memory=DP2_STORE_BYTES)
+    try:
+        trainer.update(timed("dp2", phase_dp2, card, trainer_runs))
     finally:
         ray_tpu_torch.shutdown()
     timed("train-fp32", phase_train_fp32)

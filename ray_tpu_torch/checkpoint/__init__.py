@@ -20,9 +20,9 @@ Store layout (one directory tree, typically on shared storage)::
 A checkpoint EXISTS iff its ``MANIFEST.json`` exists; shard files without a
 manifest are an aborted save, garbage-collected by the next committed one.
 
-Copied from ``ray_tpu/checkpoint/__init__.py`` (the JAX package), without
-``coordinator.py`` (``DistributedCheckpointer``, ``AsyncCommitter``),
-which waits for data parallelism (ROADMAP Queue 1 item 6).
+Copied from ``ray_tpu/checkpoint/__init__.py`` (the JAX package).
+``coordinator.py`` (``DistributedCheckpointer``, ``AsyncCommitter``,
+``commit_when_complete``) drives a ``MeshGroup`` gang's saves.
 """
 from ray_tpu_torch.checkpoint.chunks import ChunkStore, default_chunk_bytes  # noqa: F401
 from ray_tpu_torch.checkpoint.manifest import (  # noqa: F401
@@ -39,6 +39,11 @@ from ray_tpu_torch.checkpoint.saver import (  # noqa: F401
     ShardWriter,
     persist_dict_checkpoint,
     save_tree,
+)
+from ray_tpu_torch.checkpoint.coordinator import (  # noqa: F401
+    AsyncCommitter,
+    DistributedCheckpointer,
+    commit_when_complete,
 )
 from ray_tpu_torch.checkpoint.restore import (  # noqa: F401
     assemble_arrays,

@@ -1,17 +1,23 @@
 """Named logical parallelism axes (counterpart of
 ``ray_tpu/parallel/mesh.py``).
 
-Only ``MeshSpec`` is copied (``ray_tpu/parallel/mesh.py:25``, numpy
-only): ``ScalingConfig`` carries one.  Building a device mesh from it
-(``make_mesh``, ``local_mesh``) belongs to data parallelism, ROADMAP
-Queue 1 item 6.
+``MeshSpec`` is copied (``ray_tpu/parallel/mesh.py:25``, numpy only).
+A JAX mesh is an array of devices with named axes, and one program runs
+over it.  The port runs one process per rank, so its ``Mesh`` is a small
+class of its own (not ``torch.distributed.device_mesh``, which would
+open sub-groups per axis that nothing here uses): the gang's
+``torch.distributed`` process group with the spec's axes solved against
+its world size, and this rank's coordinate on each axis (row-major over
+``CANONICAL_AXES``, the JAX layout's order).  Without a process group
+the mesh is this process alone, every axis of size 1.
 
-Copied from ``ray_tpu/parallel/mesh.py`` (the JAX package).
+Copied from ``ray_tpu/parallel/mesh.py`` (the JAX package), with
+``make_mesh`` building that class.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -61,3 +67,61 @@ class MeshSpec:
     @property
     def size(self) -> int:
         return int(np.prod([v for _, v in self.ordered()])) if self.axes else 1
+
+
+class Mesh:
+    """A process group with named axes: ``shape`` maps each axis to its
+    size (``jax.sharding.Mesh.shape``), ``coords`` this rank's index on
+    each, ``group`` the ``torch.distributed`` group (None: the default
+    group, or no group at world 1)."""
+
+    def __init__(self, spec: MeshSpec, group=None):
+        import torch.distributed as dist
+
+        self.group = group
+        live = dist.is_available() and dist.is_initialized()
+        self.world = dist.get_world_size(group) if live else 1
+        self.rank = dist.get_rank(group) if live else 0
+        spec = spec.solve(self.world)
+        ordered = spec.ordered() or [("data", self.world)]
+        self.axis_names = tuple(a for a, _ in ordered)
+        self.shape = dict(ordered)
+        sizes = [n for _, n in ordered]
+        idx = np.unravel_index(self.rank, sizes)
+        self.coords = {a: int(i) for a, i in zip(self.axis_names, idx)}
+
+    @property
+    def size(self) -> int:
+        return self.world
+
+    def index_over(self, axes) -> Tuple[int, int]:
+        """(this rank's index, count) over the product of ``axes``
+        present in the mesh, row-major in the mesh's axis order."""
+        index, count = 0, 1
+        for a in self.axis_names:
+            if a in axes:
+                index = index * self.shape[a] + self.coords[a]
+                count *= self.shape[a]
+        return index, count
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, rank={self.rank})"
+
+
+def make_mesh(spec: MeshSpec, group=None) -> Mesh:
+    """The mesh of ``group``'s ranks with ``spec``'s axes; a spec with no
+    axes is one ``data`` axis over the whole group."""
+    return Mesh(spec, group)
+
+
+def local_mesh(**axes) -> Mesh:
+    """Mesh over this process's group: ``local_mesh(data=-1)`` is pure
+    data parallelism."""
+    return make_mesh(MeshSpec(axes))
+
+
+def host_local_device_count() -> int:
+    """The CUDA devices this process sees (1 on the CPU)."""
+    import torch
+
+    return torch.cuda.device_count() if torch.cuda.is_available() else 1

@@ -18,8 +18,10 @@ runs the shuffled minibatch epochs, in lockstep (sample, train, blocking
 weight sync) or streaming (``SampleStream``: fragments in flight while the
 learner trains, weights published asynchronously).  Its minibatch shuffles
 draw from a numpy generator seeded with ``config.seed``, so that a
-lockstep run repeats itself (the JAX package shuffles unseeded).  Not
-ported yet: more than one device (ROADMAP, Queue 1 item 6).
+lockstep run repeats itself (the JAX package shuffles unseeded).
+``num_devices`` raises (ROADMAP, Queue 1 item 6, what is left): the JAX
+package shards one learner process over its local devices, and the port
+runs a process per rank (``DistributedLearnerGroup``).
 """
 from __future__ import annotations
 

@@ -74,7 +74,8 @@ class RLHFConfig:
     overlap: bool = True
     score_parallelism: int = 8
     pad_to: Optional[int] = None  # default: bucket(max prompt + max_new)
-    # training-plane plans (more than one device: ROADMAP Queue 1 item 6)
+    # training-plane plans (more than one device in the learner's process:
+    # ROADMAP Queue 1 item 6, what is left)
     num_devices: Optional[int] = None
     zero_sharding: str = "off"
     quantized_collectives: str = "off"

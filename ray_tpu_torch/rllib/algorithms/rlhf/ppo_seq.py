@@ -21,7 +21,9 @@ kernels.
 
 Minibatch permutations come from a numpy generator seeded with ``seed``,
 as actor-mode PPO's do.  More than one device, ``zero_sharding`` and
-``quantized_collectives`` raise (ROADMAP Queue 1 item 6).
+``quantized_collectives`` raise (ROADMAP Queue 1 item 6, what is left):
+the JAX learner shards its one process over local devices, which the
+port, one process a rank, does not do inside a learner.
 """
 from __future__ import annotations
 

@@ -1,11 +1,14 @@
 """The single-device part of ``ray_tpu/rllib/utils/mesh.py``.
 
 The JAX package runs the Anakin step as one SPMD program over a ``data``
-mesh, with gradients and moments ``pmean``-ed across it.  On one device
-(``num_devices`` None or 1) every ``pmean`` is the identity, which is all
-the port does so far: more devices, ``zero_sharding`` and
-``quantized_collectives`` raise ``NotImplementedError`` (ROADMAP, Queue 1
-item 6, data parallelism).
+mesh of the process's local devices, with gradients and moments
+``pmean``-ed across it.  On one device (``num_devices`` None or 1) every
+``pmean`` is the identity, which is what the port does: the port's data
+parallelism is one process per rank (``parallel.mesh_group``,
+``parallel.zero``, ``DistributedLearnerGroup``), and an in-process step
+over several devices is not ported, so more devices, ``zero_sharding``
+and ``quantized_collectives`` here raise ``NotImplementedError``
+(ROADMAP, Queue 1 item 6, what is left).
 """
 from __future__ import annotations
 
@@ -13,8 +16,9 @@ from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
-_LATER = ("is not ported yet: the port's Anakin step runs on one device "
-          "(ROADMAP, Queue 1 item 6, data parallelism)")
+_LATER = ("is not ported: the port's Anakin step runs in one process on "
+          "one device, and its data parallelism is a process per rank "
+          "(ROADMAP, Queue 1 item 6, what is left)")
 
 
 def normalize_global(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -43,13 +47,14 @@ def reject_data_mesh(config, path: str) -> None:
     if getattr(config, "num_devices", None) is not None:
         raise NotImplementedError(
             f"resources(num_devices=...) is not implemented for {path}: "
-            "no data-parallel learner yet (ROADMAP, Queue 1 item 6)")
+            "the port's data-parallel learner is DistributedLearnerGroup, "
+            "a process per rank (ROADMAP, Queue 1 item 6)")
     if getattr(config, "zero_sharding", "off") != "off" or \
             getattr(config, "quantized_collectives", "off") != "off":
         raise NotImplementedError(
             f"zero_sharding/quantized_collectives are not implemented for "
-            f"{path}: they ride the data-parallel learner (ROADMAP, Queue 1 "
-            f"item 6)")
+            f"{path}: they ride an in-process data-parallel learner (ROADMAP, "
+            f"Queue 1 item 6)")
 
 
 def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float

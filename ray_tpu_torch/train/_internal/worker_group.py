@@ -63,7 +63,8 @@ class TrainWorker:
         import socket
 
         return {"rank": self.rank, "pid": os.getpid(),
-                "host": socket.gethostname()}
+                "host": socket.gethostname(),
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES", "")}
 
     def execute(self, fn: Callable, *args, **kwargs):
         """Run an arbitrary function in the worker (reference
@@ -149,6 +150,7 @@ class WorkerGroup:
             for rank in range(num_workers)
         ]
         self.num_workers = num_workers
+        self.resources_per_worker = dict(resources_per_worker)
         self.generation = generation
 
     def execute(self, fn: Callable, *args, **kwargs) -> List[Any]:

@@ -313,9 +313,12 @@ def test_learner_takes_read_only_arrays():
 
 
 def test_learner_defaults_to_cuda_and_distributed_group_raises():
+    """The learner asks for CUDA by default.  (``DistributedLearnerGroup``
+    is ported now and no longer raises: tests/test_torch_data_parallel.py
+    holds its losses and weights against JAX's ``JaxLearner`` over a
+    2-device mesh, and its checkpoint against the JAX package's
+    ``restore_tree``.)"""
     module = RLModuleSpec(obs_dim=4, num_actions=2).build()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tlearner.TorchLearner(module, tppo.ppo_loss)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tlearner.DistributedLearnerGroup(lambda: None, num_hosts=2)

@@ -208,7 +208,10 @@ def test_chip_smokes_remote_code_pickles_by_value():
     try:
         for obj in (chip_smoke.GPUActor, chip_smoke.TrainActor,
                     chip_smoke.cpu_task_view, chip_smoke.train_steps,
-                    chip_smoke.trainer_loop, chip_smoke.FlashServer):
+                    chip_smoke.trainer_loop, chip_smoke.FlashServer,
+                    chip_smoke.dp2_loop, chip_smoke.learner_factory,
+                    chip_smoke.learner_weights,
+                    *chip_smoke.elastic_problem()):
             assert cloudpickle.loads(cloudpickle.dumps(obj)).__name__ == \
                 obj.__name__
     finally:

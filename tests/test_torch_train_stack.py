@@ -357,8 +357,10 @@ def test_torch_trainer_gives_the_direct_step_and_jax_trainer_losses(
 @port_only
 def test_two_workers_form_a_gloo_process_group(rt):
     """TorchConfig's rendezvous: worker 0's address, one gloo group of two
-    ranks (an all-reduce across it), destroyed when the gang ends; a DDP
-    wrap across the two raises, naming the item that brings it."""
+    ranks (an all-reduce across it), destroyed when the gang ends;
+    ``prepare_model`` across the two wraps the model in
+    ``DistributedDataParallel`` over that group, with rank 0's
+    parameters on both ranks."""
     from ray_tpu_torch.air import session
     from ray_tpu_torch.train import TorchTrainer
 
@@ -370,15 +372,16 @@ def test_two_workers_form_a_gloo_process_group(rt):
 
         t = torch.tensor([float(session.get_world_rank() + 1)])
         dist.all_reduce(t)
-        try:
-            prepare_model(torch.nn.Linear(2, 2))
-            wrap = None
-        except NotImplementedError as e:
-            wrap = str(e)
+        torch.manual_seed(session.get_world_rank())
+        wrapped = prepare_model(torch.nn.Linear(2, 2))
+        w = wrapped.module.weight.detach().clone()
+        ws = [torch.empty_like(w) for _ in range(dist.get_world_size())]
+        dist.all_gather(ws, w)
         session.report({"rank": dist.get_rank(),
                         "world": dist.get_world_size(),
                         "backend": dist.get_backend(), "sum": t.item(),
-                        "wrap": wrap})
+                        "wrap": type(wrapped).__name__,
+                        "same_weights": torch.equal(ws[0], ws[1])})
 
     result = TorchTrainer(loop, scaling_config=_scaling(
         rt, num_workers=2)).fit()
@@ -386,7 +389,7 @@ def test_two_workers_form_a_gloo_process_group(rt):
     m = result.metrics
     assert (m["rank"], m["world"], m["backend"], m["sum"]) == \
         (0, 2, "gloo", 3.0)
-    assert "Queue 1 item 6" in m["wrap"]
+    assert m["wrap"] == "DistributedDataParallel" and m["same_weights"]
 
 
 @port_only
@@ -402,15 +405,3 @@ def test_default_scaling_asks_for_a_gpu_and_fit_names_cuda(rt):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchTrainer(loop).fit()
-
-
-@pytest.mark.parametrize("name", ["get_mesh", "prepare_train_state",
-                                  "prepare_batch", "compile_zero_step"])
-def test_data_parallel_helpers_raise_naming_their_item(name):
-    from ray_tpu_torch.train import torch as ttorch
-
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        getattr(ttorch, name)(*([None] * {"get_mesh": 0,
-                                          "prepare_train_state": 2,
-                                          "prepare_batch": 2,
-                                          "compile_zero_step": 3}[name]))
