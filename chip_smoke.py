@@ -65,9 +65,14 @@ three main paths with random weights from a seed:
   flight a worker, the learner on the card; trained to reward 100, then
   streaming and lockstep env-steps/s, the stream's readings, the SGD and
   publish times; only this process holds the card; the checkpoint round
-  trip) and ``[impala-actor]`` (IMPALA, then APPO, 2 x 4 x 32 for 20
+  trip), ``[impala-actor]`` (IMPALA, then APPO, 2 x 4 x 32 for 20
   iterations: finite losses, every env step, the weight lag within the
-  staleness bound); in a second cluster, ``[dp2]``: two ranks at half
+  staleness bound) and ``[dqn-actor]`` (DQN, 2 CPU rollout actors x 4
+  envs x 64 steps feeding the replay plane, the learner on the card: the
+  local plane to reward 100 within 80 iterations; 10 iterations on 2
+  prioritized shards, every sampled batch one ``get_many`` gather, the
+  fragments inserted as refs only, the TD errors back as priorities;
+  only this process holds the card); in a second cluster, ``[dp2]``: two ranks at half
   the card each over gloo (NCCL refuses two ranks on one device), ZeRO-2
   through ``TorchTrainer`` on the fp32 and int8 wires (the ranks'
   parameters bit-identical after every step, losses against one
@@ -107,8 +112,12 @@ three main paths with random weights from a seed:
   each trained to the bench's reward floor, then timed; APPO at IMPALA's
   size, timed (``[appo]``); LSTM and attention PPO on
   StatelessCartPole at the tuned example's settings, trained to reward
-  150 and evaluated greedily (``[memory]``).  No RL path reaches a flash
-  kernel (checked, path by path).
+  150 and evaluated greedily (``[memory]``); the replay family with its
+  ring on the card, each update replayed as a CUDA graph (held once
+  against the same update eager): DQN on CartPole-v1 to reward 150
+  within 90 iterations (``[dqn]``), SAC and TD3 on PendulumContinuous-v1
+  to -300 within 200 (``[sac]``, ``[td3]``), then DDPG for 5 iterations.
+  No RL path reaches a flash kernel (checked, path by path).
 
 Each C entry picks its kernel by dtype (every bf16 kernel: ``wgmma``;
 every fp32 kernel: ``fma``); the script checks and prints the routes
@@ -161,9 +170,13 @@ from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as attn
 from ray_tpu_torch.rllib import (
     APPOConfig,
+    DDPGConfig,
+    DQNConfig,
     IMPALAConfig,
     PPOConfig,
     RLModuleSpec,
+    SACConfig,
+    TD3Config,
 )
 from ray_tpu_torch.rllib.env.py_envs import PyCartPole, VectorEnv
 from ray_tpu_torch.rllib.env.torch_envs import Breakout84, make_torch_env
@@ -274,7 +287,7 @@ PPO_MAX_ITERS = 150
 # Timed iterations after the floor (PPO, MinAtar PPO, IMPALA's gate
 # seed), few to keep the script within its time limit; each iteration
 # does the same work.
-PPO_TIMED_ITERS = 4
+PPO_TIMED_ITERS = 2
 # The module's logits and value on the card against the CPU, fp32 with TF32
 # off: the same sums (fan-in up to 7744) in other orders, ~1e-6 relative;
 # held to 1e-4 of each output's largest magnitude.
@@ -298,7 +311,7 @@ MINATAR_REWARD_FLOOR = 3.0
 IMPALA_TRAINING = {"lr": 2e-3, "entropy_coeff": 0.01}
 IMPALA_FLOOR, IMPALA_TARGET, IMPALA_MAX_ITERS = 1.5, 1.8, 110
 IMPALA_SEEDS = (0, 1, 2)
-APPO_TIMED_ITERS = 10
+APPO_TIMED_ITERS = 4
 # LSTM and attention PPO on StatelessCartPole: the tuned example
 # ray_tpu/rllib/tuned_examples/stateless-cartpole-attention.yaml (the LSTM
 # with lstm_cell_size 64, as tests/test_ppo_rnn.py:76-80), gated on the
@@ -2421,7 +2434,7 @@ def phase_dp2(card, trainer_runs) -> dict:
 # flight a worker, env stepping in subprocesses where the host has >= 4
 # cores; the learner on the card.  The gate is _learn_to_floor's with
 # tests/test_rllib_actor_path.py's CartPole floor of 100: the CURRENT
-# episode_reward_mean >= 100 at an iteration >= 10, within 60.  Then 6
+# episode_reward_mean >= 100 at an iteration >= 10, within 60.  Then 3
 # timed iterations (_measure_steps_per_s), and a lockstep leg of the same
 # settings (sample_streaming=False), timed the same way.
 PPO_ACTOR_ROLLOUTS = {"num_rollout_workers": 2, "num_envs_per_worker": 8,
@@ -2432,7 +2445,7 @@ PPO_ACTOR_ROLLOUTS = {"num_rollout_workers": 2, "num_envs_per_worker": 8,
 PPO_ACTOR_TRAINING = {"lr": 3e-4, "num_sgd_iter": 6,
                       "sgd_minibatch_size": 512, "entropy_coeff": 0.01,
                       "gamma": 0.999}
-PPO_ACTOR_FLOOR, PPO_ACTOR_MAX_ITERS, PPO_ACTOR_TIMED_ITERS = 100.0, 60, 6
+PPO_ACTOR_FLOOR, PPO_ACTOR_MAX_ITERS, PPO_ACTOR_TIMED_ITERS = 100.0, 60, 3
 # [impala-actor]: tests/test_rllib_actor_path.py:62-75's configuration (2
 # workers x 4 envs x 32 steps, lr 5e-4) for 20 iterations, then APPO at
 # the same size; no reward floor (the JAX package sets none).
@@ -2566,7 +2579,7 @@ def serial_fragment_ms(reps=3) -> float:
 
 def phase_ppo_actor(card) -> dict:
     """Actor-mode PPO at bench_ppo_real_env's settings on CartPole-v1:
-    the learner's parameters on the card; trained to the gate; 6 timed
+    the learner's parameters on the card; trained to the gate; 3 timed
     iterations (env-steps/s, the stream's readings, SGD and publish
     times); only this process holds the card; a lockstep leg timed the
     same way; the checkpoint round trip into the lockstep algorithm."""
@@ -2588,7 +2601,8 @@ def phase_ppo_actor(card) -> dict:
         1, st["fragments_consumed"] + st["stale_dropped"]) * 1e3
     minibatch = {k: v[:PPO_ACTOR_TRAINING["sgd_minibatch_size"]]
                  for k, v in algo._train_buf.items()}
-    update = profile_device(lambda: algo.learner.update(minibatch))
+    update = profile_device(lambda: algo.learner.update(minibatch),
+                            check=True)
     holders = card_holders(algo)
     if holders["holders"] != [os.getpid()] or \
             holders["env_processes"] < 1:
@@ -2735,6 +2749,210 @@ def phase_impala_actor(card) -> dict:
     return {"flash": dict(attn.LAUNCHES)}
 
 
+# [dqn-actor]: tests/test_rllib_actor_path.py:78-100's configuration on the
+# native CartPole-v1 (the card's machine has no gymnasium): 2 CPU rollout
+# actors x 4 envs x 64 steps, lr 5e-4, the learner on the card.  The
+# local plane is gated at the test's best >= 100 within 80 iterations;
+# the sharded plane (2 shards, prioritized) runs DQN_SHARDED_ITERS.
+DQN_ACTOR_ROLLOUTS = {"num_rollout_workers": 2, "num_envs_per_worker": 4,
+                      "rollout_fragment_length": 64}
+DQN_ACTOR_FLOOR, DQN_ACTOR_MAX_ITERS, DQN_SHARDED_ITERS = 100.0, 80, 10
+DQN_ACTOR_PHASES = ("start", "sample", "gather", "update", "publish")
+
+
+def dqn_actor_algo(**replay):
+    cfg = (DQNConfig().environment("CartPole-v1")
+           .rollouts(**DQN_ACTOR_ROLLOUTS).training(lr=5e-4)
+           .debugging(seed=SEED))
+    for k, v in replay.items():
+        setattr(cfg, k, v)
+    return cfg.build()
+
+
+def dqn_actor_iterations(algo, tag, iters, floor=None) -> dict:
+    """Up to ``iters`` iterations (until the best reward >= ``floor``
+    when given), a CUDA event and a host time at each of the iteration's
+    marks: the wait for transitions ("sample", host clock), the gather of
+    the stacked batches onto the card (host clock), the updates (CUDA
+    events, ended by their metrics' read) and the publish (host clock),
+    as ms an iteration over the iterations that updated."""
+    marks = []
+
+    def mark(name):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append((name, event, time.perf_counter()))
+
+    algo.on_phase = mark
+    best, met_at, warm, results = float("-inf"), None, [], []
+    t0 = time.perf_counter()
+    for i in range(iters):
+        m = algo.train()
+        results.append(m)
+        r = m.get("episode_reward_mean", float("nan"))
+        if np.isfinite(r):
+            best = max(best, r)
+        if "total_loss" in m:
+            if not np.isfinite(m["total_loss"]):
+                raise AssertionError(f"[{tag}] iteration {i}: {m}")
+            warm.append(i)
+        if i % 20 == 0:
+            log(f"[{tag}] iteration {i}: episode_reward_mean {r:.2f} (best "
+                f"{best:.2f}), replay {m['replay_size']}, "
+                f"{m['time_this_iter_s'] * 1e3:.1f} ms")
+        if floor is not None and best >= floor:
+            met_at = i
+            break
+    seconds = time.perf_counter() - t0
+    algo.on_phase = None
+    torch.cuda.synchronize()
+    k = len(DQN_ACTOR_PHASES)
+    if [n for n, _, _ in marks] != list(DQN_ACTOR_PHASES) * len(results):
+        raise AssertionError(f"[{tag}] phase marks {marks[:k]}")
+    rows = [marks[j * k:(j + 1) * k] for j in warm]
+
+    def host_ms(a, b):
+        return float(np.mean([(r[b][2] - r[a][2]) * 1e3 for r in rows]))
+
+    steps = sum(m["num_env_steps_sampled_this_iter"] for m in results)
+    return {"met_at": met_at, "best": best, "iterations": len(results),
+            "seconds": seconds, "results": results, "warm": len(warm),
+            "sample_ms": host_ms(0, 1), "gather_ms": host_ms(1, 2),
+            "update_ms": float(np.mean([r[2][1].elapsed_time(r[3][1])
+                                        for r in rows])),
+            "publish_ms": host_ms(3, 4), "env_steps_per_s": steps / seconds}
+
+
+def dqn_actor_card_holders(algo) -> dict:
+    """card_holders' reading over the rollout workers and, on a sharded
+    plane, the replay shards: only this process may hold the card."""
+    shards = []
+    if algo._rb.distributed:
+        shards = ray_tpu_torch.get([w.pid.remote() for w in
+                                    algo._rb._shard_set.workers],
+                                   timeout=GET_S)
+    holders = card_holders(algo)
+    holders["shards"] = sorted(shards)
+    holders["holders"] = sorted(p for p in {*holders["holders"], *shards}
+                                if holds_the_card(p))
+    if holders["holders"] != [os.getpid()]:
+        raise AssertionError(f"[dqn-actor] card holders {holders}")
+    return holders
+
+
+def phase_dqn_actor(card) -> dict:
+    """Actor-mode DQN on CartPole-v1, the learner on the card: on the
+    local plane to the gate; on a sharded prioritized plane, every sampled
+    batch one get_many gather, no payload through the plane's insert path
+    (the workers publish, the shards take refs), the TD errors back as
+    priorities, finite losses; only this process holds the card."""
+    from ray_tpu_torch.object_ref import ObjectRef
+
+    zero_launches()
+    algo = dqn_actor_algo()
+    try:
+        where = devices(algo.learner.module.parameters())
+        if where != {"cuda"}:
+            raise AssertionError(f"[dqn-actor] learner on {where}")
+        local = dqn_actor_iterations(algo, "dqn-actor", DQN_ACTOR_MAX_ITERS,
+                                     DQN_ACTOR_FLOOR)
+        if local["met_at"] is None:
+            raise AssertionError(
+                f"[dqn-actor] best reward {local['best']:.2f} < "
+                f"{DQN_ACTOR_FLOOR} within {DQN_ACTOR_MAX_ITERS}")
+        holders = dqn_actor_card_holders(algo)
+    finally:
+        algo.stop()
+    algo = dqn_actor_algo(replay_num_shards=2, replay_prioritized=True)
+    try:
+        plane = algo._rb
+        counts = collections.Counter()
+        insert, insert_refs, sample = (plane.insert, plane.insert_refs,
+                                       plane.sample)
+
+        def count_insert(*args, **kwargs):
+            counts["payload_inserts"] += 1
+            return insert(*args, **kwargs)
+
+        def count_refs(refs, *args, **kwargs):
+            if not all(isinstance(r, ObjectRef) for r in refs.values()):
+                raise AssertionError(f"[dqn-actor] a payload in {refs}")
+            counts["ref_inserts"] += 1
+            return insert_refs(refs, *args, **kwargs)
+
+        def count_sample(*args, **kwargs):
+            counts["samples"] += 1
+            return sample(*args, **kwargs)
+
+        plane.insert, plane.insert_refs, plane.sample = (
+            count_insert, count_refs, count_sample)
+        sharded = dqn_actor_iterations(algo, "dqn-actor sharded",
+                                       DQN_SHARDED_ITERS)
+        gathers, sampled = plane.gather_calls, counts["samples"]
+        updates = sum(1 for m in sharded["results"] if "total_loss" in m)
+        # The priorities the learner sent land on the shards: their mass,
+        # all 1.0 a row at insert, moves off the row count.
+        deadline = time.monotonic() + GET_S
+        while True:
+            plane.sample(8)
+            st = plane.stats()
+            if abs(sum(st["per_shard_mass"]) - st["size"]) > 1.0:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"[dqn-actor] no priority update "
+                                     f"landed: {st}")
+            time.sleep(0.2)
+        shard_holders = dqn_actor_card_holders(algo)
+    finally:
+        algo.stop()
+    want_samples = updates * algo._actor_updates
+    if not (counts["payload_inserts"] == 0 and counts["ref_inserts"]
+            == DQN_SHARDED_ITERS * DQN_ACTOR_ROLLOUTS["num_rollout_workers"]
+            and sampled == gathers == want_samples
+            and updates >= DQN_SHARDED_ITERS - 1
+            and st["num_healthy_shards"] == 2):
+        raise AssertionError(f"[dqn-actor] sharded plane: {dict(counts)}, "
+                             f"{gathers} gathers, {updates} updating "
+                             f"iterations, {st}")
+    last = sharded["results"][-1]
+    note("dqn-actor", met_at=local["met_at"], best=local["best"],
+         sample_ms=local["sample_ms"], gather_ms=local["gather_ms"],
+         update_ms=local["update_ms"], publish_ms=local["publish_ms"],
+         env_steps_per_s=local["env_steps_per_s"],
+         sharded_sample_ms=sharded["sample_ms"],
+         sharded_gather_ms=sharded["gather_ms"],
+         sharded_update_ms=sharded["update_ms"],
+         sharded_publish_ms=sharded["publish_ms"])
+    log(f"[dqn-actor] {card} | DQN in actor mode, CartPole-v1: 2 CPU "
+        f"rollout actors x 4 envs x 64 steps, {algo._actor_updates} "
+        f"updates of {algo.config.dqn_batch_size} an iteration on the card "
+        f"(fp32): local plane best reward {local['best']:.2f} >= "
+        f"{DQN_ACTOR_FLOOR} at iteration {local['met_at']} "
+        f"({local['seconds']:.1f} s, {local['env_steps_per_s']:.0f} "
+        f"env-steps/s); ms an iteration over the {local['warm']} that "
+        f"updated: waiting for transitions {local['sample_ms']:.1f}, the "
+        f"gather onto the card {local['gather_ms']:.1f}, updates "
+        f"{local['update_ms']:.1f} (CUDA events), publish "
+        f"{local['publish_ms']:.1f}; sharded prioritized plane (2 shards) "
+        f"{DQN_SHARDED_ITERS} iterations in {sharded['seconds']:.1f} s: "
+        f"waiting {sharded['sample_ms']:.1f}, gather "
+        f"{sharded['gather_ms']:.1f}, updates {sharded['update_ms']:.1f}, "
+        f"publish {sharded['publish_ms']:.1f} ms; {sampled} "
+        f"sampled batches in {gathers} get_many gathers, "
+        f"{counts['ref_inserts']} fragments inserted as refs and "
+        f"{counts['payload_inserts']} as payload, shard masses "
+        f"{[round(x, 1) for x in st['per_shard_mass']]} over {st['size']} "
+        f"rows (priority updates landed), last loss "
+        f"{last['total_loss']:.4f}; card held by {holders['holders']} "
+        f"(this process {holders['driver']}; workers {holders['workers']}; "
+        f"shards {shard_holders['shards']}: "
+        f"{shard_holders['holders']}); flash launches "
+        f"{dict(attn.LAUNCHES)}")
+    if any(attn.LAUNCHES.values()):
+        raise AssertionError(f"[dqn-actor] launched {attn.LAUNCHES}")
+    return {"flash": dict(attn.LAUNCHES)}
+
+
 # ---------------------------------------------------------------------------
 # The Serve control plane with LLMServer as a GPU deployment ([serve]), and
 # the RLHF loop ([rlhf]), in the runtime's shared cluster
@@ -2749,7 +2967,7 @@ def phase_impala_actor(card) -> dict:
 SERVE_ENGINE = {"max_slots": 4}
 SERVE_GPUS = 0.5
 SERVE_OPTIONS = {"num_gpus": SERVE_GPUS, "max_concurrency": 16}
-SERVE_ROUNDS = 3
+SERVE_ROUNDS = 2
 SERVE_CLIENTS = 8
 SERVE_SCALE_S = 60.0  # the bound of the scale-up and of the scale-down
 SERVE_AUTOSCALING = {"min_replicas": 1, "max_replicas": 2,
@@ -2985,7 +3203,7 @@ RLHF_CONFIG = {"rollouts_per_step": 16, "max_new_tokens": RLHF_NEW,
                "entropy_coeff": 0.001, "seed": SEED}
 RLHF_ENGINE = {"max_slots": 16, "page_size": 16, "max_ctx": 1024}
 RLHF_GPUS = 0.5
-RLHF_TIMED_STEPS = 3
+RLHF_TIMED_STEPS = 2
 # Flash launches of a step, E epochs of M minibatches: the advantage
 # forward and each minibatch's forward run 12 layers of the forward; each
 # minibatch's backward 12 of dq and of dkv.
@@ -4039,13 +4257,46 @@ DEVICE_GROUPS = (("layout", ("nhwcToNchw", "nchwToNhwc")),
                                 "fprop", "xmma", "cutlass", "fft")))
 
 
-def profile_device(fn, groups=DEVICE_GROUPS) -> dict:
+def device_events(prof, from_averages=False) -> tuple:
+    """(device operations by name: (count, ms), kernel-launch calls) of a
+    finished ``torch.profiler`` run.  Read from the kineto events as they
+    are: ``key_averages`` builds Python objects for the host's events
+    first, which took 32 s for one LSTM PPO iteration's 390k events on
+    the CPU; the device's events do not nest, so their counts and times
+    are ``key_averages``' (``from_averages=True`` computes those, to check
+    it).  A user annotation (the optimizer's "Optimizer.step#...") also
+    has a span on the device's timeline, over kernels counted on their
+    own."""
+    cuda = torch.autograd.DeviceType.CUDA
+    device, launches = {}, 0
+    if from_averages:
+        events = prof.key_averages()
+        device = {e.key: (e.count, getattr(e, "self_device_time_total",
+                                           getattr(e, "self_cuda_time_total",
+                                                   0)) / 1e3)
+                  for e in events if e.device_type == cuda
+                  and not getattr(e, "is_user_annotation", False)}
+        return device, sum(e.count for e in events
+                           if "LaunchKernel" in e.key)
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if "LaunchKernel" in name:
+            launches += 1
+        if e.device_type() == cuda and not getattr(
+                e, "is_user_annotation", lambda: False)():
+            n, ms = device.get(name, (0, 0.0))
+            device[name] = (n + 1, ms + e.duration_ns() / 1e6)
+    return device, launches
+
+
+def profile_device(fn, groups=DEVICE_GROUPS, check=False) -> dict:
     """What ``fn()`` puts on the card, from ``torch.profiler``: the device
     operations it ran (kernels, memsets, copies), the kernel-launch calls
     the host made (``cudaLaunchKernel``, ``cuLaunchKernel``), the device
     time summed over those operations (one stream: they do not overlap),
     that time by ``groups`` (first match of a name's words), and the six
-    operations that took the most of it, with their counts."""
+    operations that took the most of it, with their counts.  ``check``
+    holds ``device_events`` to ``key_averages``' counts and times."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -4055,14 +4306,16 @@ def profile_device(fn, groups=DEVICE_GROUPS) -> dict:
         fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    # A user annotation (the optimizer's "Optimizer.step#...") also has a
-    # span on the device's timeline, over kernels counted on their own.
-    device = {e.key: (e.count, getattr(e, "self_device_time_total", getattr(
-        e, "self_cuda_time_total", 0)) / 1e3)
-              for e in events
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)}
+    device, launches = device_events(prof)
+    if check:
+        want, want_launches = device_events(prof, from_averages=True)
+        if launches != want_launches or {k: n for k, (n, _) in
+                                         device.items()} != \
+                {k: n for k, (n, _) in want.items()} or any(
+                    abs(device[k][1] - ms) > 1e-3 * max(ms, 1e-3)
+                    for k, (_, ms) in want.items()):
+            raise AssertionError(f"device_events {launches} {device} != "
+                                 f"key_averages {want_launches} {want}")
     top = sorted(device.items(), key=lambda kv: -kv[1][1])[:6]
     by_group = {}
     for name, (_, ms) in device.items():
@@ -4070,8 +4323,7 @@ def profile_device(fn, groups=DEVICE_GROUPS) -> dict:
             w in name for w in words)), "other")
         by_group[group] = by_group.get(group, 0.0) + ms
     return {"device_ops": sum(n for n, _ in device.values()),
-            "launch_calls": sum(e.count for e in events
-                                if "LaunchKernel" in e.key),
+            "launch_calls": launches,
             "device_ms": sum(ms for _, ms in device.values()),
             "wall_ms": wall_ms, "top": top, "kinds": len(device),
             "groups": by_group}
@@ -4267,11 +4519,12 @@ def _space_invaders_states(rng, n) -> dict:
 
 
 def phase_envs():
-    """This slice's envs, ``step_core`` on the card against the CPU from
-    the same seeded states, actions and draws: Breakout-MinAtar and
-    SpaceInvaders bitwise (state, boards, reward, done, frames),
-    Pendulum's and StatelessCartPole's float state within
-    ``ENV_FLOAT_TOL``; how many states took each branch."""
+    """The MinAtar and classic envs, ``step_core`` on the card against the
+    CPU from the same seeded states, actions and draws: Breakout-MinAtar
+    and SpaceInvaders bitwise (state, boards, reward, done, frames), the
+    two Pendulums' (discrete and continuous torque) and
+    StatelessCartPole's float state within ``ENV_FLOAT_TOL``; how many
+    states took each branch."""
     rng = np.random.default_rng(SEED + 11)
     n = ENV_STATES
     gen = torch.Generator().manual_seed(SEED + 11)
@@ -4289,11 +4542,17 @@ def phase_envs():
              ("SpaceInvaders-MinAtar-v0", _space_invaders_states(rng, n),
               invaders.draws(n, gen, "cpu"), ()),
              ("Pendulum-v1", pend, (), ("th", "thdot", "reward", "obs")),
+             ("PendulumContinuous-v1", pend, (),
+              ("th", "thdot", "reward", "obs")),
              ("StatelessCartPole-v1", cart, (), ("core", "obs")))
     lines = []
     for name, states, draws, floats in cases:
         env = make_torch_env(name)
-        actions = torch.from_numpy(rng.integers(0, env.num_actions, n))
+        if env.num_actions is None:  # torques inside and outside [-2, 2]
+            actions = torch.from_numpy(rng.uniform(
+                -3, 3, (n, env.action_dim)).astype(np.float32))
+        else:
+            actions = torch.from_numpy(rng.integers(0, env.num_actions, n))
         out = {}
         for device in ("cuda", "cpu"):
             stepped, reward, done = env.step_core(
@@ -4327,7 +4586,7 @@ def phase_envs():
             counts = (f"{int((cpu['reward'] > 0).sum())} states with an "
                       f"alien shot, {respawned} waves respawned, {fired} "
                       f"enemy bullets drawn")
-        elif name == "Pendulum-v1":
+        elif name.startswith("Pendulum"):
             wrapped = int((torch.from_numpy(states["th"]).abs() > np.pi)
                           .sum())
             counts = f"{wrapped} angles wrapped"
@@ -4513,6 +4772,324 @@ def phase_memory(card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The replay family in Anakin mode ([dqn], [sac], [td3]): the envs, the
+# replay ring and the updates on the card, fp32 with TF32 off
+# ---------------------------------------------------------------------------
+# [dqn]: tests/test_dqn.py:56-77's configuration and gate (the reference's
+# tuned_examples/dqn/cartpole-dqn.yaml bar): the BEST episode_reward_mean
+# >= 150 within 90 iterations.
+DQN_ANAKIN = {"num_envs": 128, "unroll_length": 16}
+DQN_KNOBS = {"num_updates_per_iter": 16, "dqn_batch_size": 256,
+             "epsilon_decay_steps": 60_000, "learning_starts": 2_000}
+DQN_FLOOR, DQN_MAX_ITERS = 150.0, 90
+# [sac] and [td3]: tests/test_sac_offline.py:57-78's and
+# tests/test_more_algos.py:91-108's configuration and gate (best >= -300
+# within 200 iterations; the reference's pendulum-sac.yaml reads ~-250).
+# An episode lasts 200 steps, 50 iterations of 4: the reward moves at
+# iterations 50, 100, 150 and 200.
+PENDULUM_ANAKIN = {"num_envs": 32, "unroll_length": 4}
+PENDULUM_KNOBS = {"num_updates_per_iter": 64, "learning_starts": 1000}
+PENDULUM_FLOOR, PENDULUM_MAX_ITERS = -300.0, 200
+# DDPG: TD3's configuration for DDPG_ITERS iterations, collecting only
+# until DDPG_LEARNING_STARTS (128 env steps an iteration: the last 4
+# update).
+DDPG_ITERS, DDPG_LEARNING_STARTS = 5, 256
+OFFPOLICY_PHASES = ("start", "rollout", "update")
+
+
+def devices(tensors) -> set:
+    """The device types the tensors among ``tensors`` lie on."""
+    return {t.device.type for t in tensors if isinstance(t, torch.Tensor)}
+
+
+def offpolicy_algo(config_cls, env, knobs, seed=SEED, **training):
+    cfg = (config_cls().environment(env)
+           .anakin(**(DQN_ANAKIN if env == "CartPole-v1"
+                      else PENDULUM_ANAKIN))
+           .training(**training).debugging(seed=seed))
+    for k, v in knobs.items():
+        setattr(cfg, k, v)
+    return cfg.build()
+
+
+def best_within(algo, tag, floor, max_iters, loss) -> dict:
+    """The JAX tests' gate: train until the BEST episode_reward_mean >=
+    ``floor``, within ``max_iters``; raises on a non-finite ``loss`` once
+    the updates run.  Every iteration is split by CUDA events at the
+    step's marks ("start", "rollout", "update"); the means are over the
+    iterations that updated, with their env-steps/s by the host clock."""
+    marks = []
+
+    def mark(name):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append((name, event, time.perf_counter()))
+
+    algo.on_phase = mark
+    best, met_at, warm, host_s = float("-inf"), None, [], 0.0
+    t0 = time.perf_counter()
+    for i in range(max_iters):
+        m = algo.train()
+        if np.isfinite(m["episode_reward_mean"]):
+            best = max(best, m["episode_reward_mean"])
+        updated = m["replay_size"] >= algo.config.learning_starts
+        if updated:
+            if not np.isfinite(m[loss]):
+                raise AssertionError(f"[{tag}] iteration {i}: {m}")
+            warm.append(i)
+            host_s += m["time_this_iter_s"]
+        if i % 20 == 0:
+            log(f"[{tag}] iteration {i}: episode_reward_mean "
+                f"{m['episode_reward_mean']:.2f} (best {best:.2f}), {loss} "
+                f"{m[loss]:.4f}, {m['time_this_iter_s'] * 1e3:.1f} ms")
+        if best >= floor:
+            met_at = i
+            break
+    seconds = time.perf_counter() - t0
+    algo.on_phase = None
+    torch.cuda.synchronize()
+    k = len(OFFPOLICY_PHASES)
+    if [n for n, _, _ in marks] != list(OFFPOLICY_PHASES) * (i + 1):
+        raise AssertionError(f"[{tag}] phase marks {marks[:k]}")
+    rows = [marks[j * k:(j + 1) * k] for j in warm]
+    split = {name: float(np.mean([r[n][1].elapsed_time(r[n + 1][1])
+                                  for r in rows]))
+             for n, name in enumerate(OFFPOLICY_PHASES[1:])}
+    return {"met_at": met_at, "best": best, "iterations": i + 1,
+            "seconds": seconds, "metrics": m, "split": split,
+            "warm_iterations": len(warm),
+            "iter_ms": host_s / max(1, len(warm)) * 1e3,
+            "env_steps_per_s": len(warm) * algo._steps_per_iter
+            / max(host_s, 1e-9)}
+
+
+def profile_update(algo) -> dict:
+    """One update of the algorithm's learner on a uniform draw from its
+    ring, profiled (launch calls, device ops and time): eager, and
+    replayed from its CUDA graph (under "graph")."""
+    st = algo._anakin_state
+    updates = st.updates
+
+    def eager():
+        updates.use_graphs = False
+        try:
+            return updates.update(st.replay.size, st.generator)
+        finally:
+            updates.use_graphs = True
+
+    out = profile_device(eager, check=True)
+    out["graph"] = profile_device(
+        lambda: updates.update(st.replay.size, st.generator))
+    return out
+
+
+# A replayed update's graph against the same update run eagerly from the
+# same state and draws: every parameter and optimizer-state tensor within
+# this of its largest magnitude (the same kernels, unless cuBLAS picks
+# another algorithm under capture).
+GRAPH_EAGER_RTOL = 1e-5
+
+
+def learner_tensors(learner) -> list:
+    """Every tensor an update changes: the modules' parameters (targets
+    included), ``log_alpha``, the optimizers' states."""
+    out = []
+    for value in vars(learner).values():
+        if isinstance(value, torch.nn.Module):
+            out += list(value.parameters())
+        elif isinstance(value, torch.nn.Parameter):
+            out.append(value)
+        elif isinstance(value, torch.optim.Optimizer):
+            out += [t for st in value.state.values() for t in st.values()
+                    if isinstance(t, torch.Tensor)]
+    return list({id(t): t for t in out}.values())
+
+
+def graph_against_eager(algo) -> dict:
+    """One update through the captured graph, then, from the state and
+    generator as they were, the same update eagerly: the largest
+    difference over every tensor it changed, relative to that tensor's
+    largest magnitude."""
+    st, learner = algo._anakin_state, algo.learner
+    updates = st.updates
+    if not updates.graphs or learner.step_kind() not in updates.graphs:
+        raise AssertionError(f"no captured graph: {updates.warm}")
+    tensors = learner_tensors(learner)
+    saved = [t.detach().clone() for t in tensors]
+    counts = dict(vars(learner))
+    gen_state = st.generator.get_state()
+    with torch.no_grad():
+        updates.update(st.replay.size, st.generator)
+        after_graph = [t.detach().clone() for t in tensors]
+        for t, v in zip(tensors, saved):
+            t.copy_(v)
+    for k in ("update_count", "policy_updates"):
+        if k in counts:
+            setattr(learner, k, counts[k])
+    st.generator.set_state(gen_state)
+    updates.use_graphs = False
+    try:
+        updates.update(st.replay.size, st.generator)
+    finally:
+        updates.use_graphs = True
+    worst, bitwise = 0.0, True
+    for t, g in zip(tensors, after_graph):
+        e = t.detach()
+        bitwise = bitwise and torch.equal(e, g)
+        scale = max(e.abs().max().item(), 1e-12) if e.numel() else 1.0
+        worst = max(worst, (e - g).abs().max().item() / scale
+                    if e.numel() else 0.0)
+    if worst > GRAPH_EAGER_RTOL:
+        raise AssertionError(f"graph vs eager update: {worst:.3g}")
+    return {"rel": worst, "bitwise": bitwise, "tensors": len(tensors),
+            "replays": updates.replays, "graphs": len(updates.graphs)}
+
+
+def offpolicy_line(tag, card, what, gate, prof) -> str:
+    split = gate["split"]
+    return (f"[{tag}] {card} | {what}: best episode_reward_mean "
+            f"{gate['best']:.2f} at iteration {gate['met_at']} of "
+            f"{gate['iterations']} ({gate['seconds']:.1f} s); over the "
+            f"{gate['warm_iterations']} iterations that updated "
+            f"{gate['iter_ms']:.1f} ms an iteration, "
+            f"{gate['env_steps_per_s']:.0f} env-steps/s, by CUDA events "
+            f"rollout {split['rollout']:.2f} ms and updates "
+            f"{split['update']:.2f} ms; one update profiled: "
+            f"{prof['launch_calls']} launch calls, {prof['device_ops']} "
+            f"device ops, {prof['device_ms']:.3f} ms on the card of "
+            f"{prof['wall_ms']:.3f} ms eager, "
+            f"{prof['graph']['launch_calls']} launch calls, "
+            f"{prof['graph']['device_ms']:.3f} ms of "
+            f"{prof['graph']['wall_ms']:.3f} ms replayed from its graph; "
+            f"the updates replayed "
+            f"{gate['graph']['replays']} times from "
+            f"{gate['graph']['graphs']} CUDA graph(s), one against the "
+            f"same update eager: max relative difference "
+            f"{gate['graph']['rel']:.3g} over {gate['graph']['tensors']} "
+            f"tensors (bitwise {gate['graph']['bitwise']}); flash launches "
+            f"{dict(attn.LAUNCHES)}")
+
+
+def phase_dqn(card) -> dict:
+    """Anakin DQN on CartPole-v1 at tests/test_dqn.py's configuration:
+    the gate, ms an iteration split into rollout and updates, env-steps/s,
+    one update profiled."""
+    zero_launches()
+    algo = offpolicy_algo(DQNConfig, "CartPole-v1", DQN_KNOBS, lr=1e-3)
+    where = devices([*algo.module.parameters(),
+                     *vars(algo._anakin_state.replay).values()])
+    if where != {"cuda"}:
+        raise AssertionError(f"[dqn] parameters and ring on {where}")
+    gate = best_within(algo, "dqn", DQN_FLOOR, DQN_MAX_ITERS, "total_loss")
+    if gate["met_at"] is None:
+        raise AssertionError(f"[dqn] best reward {gate['best']:.2f} < "
+                             f"{DQN_FLOOR} within {DQN_MAX_ITERS}")
+    gate["graph"] = graph_against_eager(algo)
+    prof = profile_update(algo)
+    note("dqn", met_at=gate["met_at"], best=gate["best"],
+         iter_ms=gate["iter_ms"], env_steps_per_s=gate["env_steps_per_s"],
+         rollout_ms=gate["split"]["rollout"],
+         update_ms=gate["split"]["update"],
+         update_launch_calls=prof["launch_calls"],
+         graph_update_ms=prof["graph"]["wall_ms"])
+    log(offpolicy_line(
+        "dqn", card, f"DQN CartPole-v1 {DQN_ANAKIN['num_envs']} envs x "
+        f"{DQN_ANAKIN['unroll_length']} steps, "
+        f"{DQN_KNOBS['num_updates_per_iter']} double-Q updates of "
+        f"{DQN_KNOBS['dqn_batch_size']} an iteration, fp32, TF32 off",
+        gate, prof))
+    if any(attn.LAUNCHES.values()):
+        raise AssertionError(f"[dqn] launched {attn.LAUNCHES}")
+    return {"flash": dict(attn.LAUNCHES)}
+
+
+def phase_sac(card) -> dict:
+    """Anakin SAC on PendulumContinuous-v1 at tests/test_sac_offline.py's
+    configuration: the gate, ms an iteration split into rollout and
+    updates, one update profiled."""
+    zero_launches()
+    algo = offpolicy_algo(SACConfig, "PendulumContinuous-v1", PENDULUM_KNOBS)
+    gate = best_within(algo, "sac", PENDULUM_FLOOR, PENDULUM_MAX_ITERS,
+                       "critic_loss")
+    if gate["met_at"] is None:
+        raise AssertionError(f"[sac] best reward {gate['best']:.2f} < "
+                             f"{PENDULUM_FLOOR} within {PENDULUM_MAX_ITERS}")
+    gate["graph"] = graph_against_eager(algo)
+    prof = profile_update(algo)
+    m = gate["metrics"]
+    note("sac", met_at=gate["met_at"], best=gate["best"],
+         iter_ms=gate["iter_ms"], rollout_ms=gate["split"]["rollout"],
+         update_ms=gate["split"]["update"],
+         update_launch_calls=prof["launch_calls"],
+         graph_update_ms=prof["graph"]["wall_ms"], alpha=m["alpha"])
+    log(offpolicy_line(
+        "sac", card, f"SAC PendulumContinuous-v1 "
+        f"{PENDULUM_ANAKIN['num_envs']} envs x "
+        f"{PENDULUM_ANAKIN['unroll_length']} steps, "
+        f"{PENDULUM_KNOBS['num_updates_per_iter']} updates (critic, actor, "
+        f"alpha) of {algo.config.sac_batch_size} an iteration, fp32, TF32 "
+        f"off; alpha {m['alpha']:.4f}", gate, prof))
+    if any(attn.LAUNCHES.values()):
+        raise AssertionError(f"[sac] launched {attn.LAUNCHES}")
+    return {"flash": dict(attn.LAUNCHES)}
+
+
+def phase_td3(card) -> dict:
+    """Anakin TD3 on PendulumContinuous-v1 at tests/test_more_algos.py's
+    configuration, gated as SAC; then DDPG for DDPG_ITERS iterations:
+    finite losses, a policy step at every update."""
+    zero_launches()
+    algo = offpolicy_algo(TD3Config, "PendulumContinuous-v1", PENDULUM_KNOBS)
+    gate = best_within(algo, "td3", PENDULUM_FLOOR, PENDULUM_MAX_ITERS,
+                       "critic_loss")
+    if gate["met_at"] is None:
+        raise AssertionError(f"[td3] best reward {gate['best']:.2f} < "
+                             f"{PENDULUM_FLOOR} within {PENDULUM_MAX_ITERS}")
+    learner = algo.learner
+    if learner.policy_updates != -(-learner.update_count // 2):
+        raise AssertionError(f"[td3] {learner.policy_updates} policy steps "
+                             f"in {learner.update_count} updates")
+    gate["graph"] = graph_against_eager(algo)
+    prof = profile_update(algo)
+    del algo
+    ddpg = offpolicy_algo(DDPGConfig, "PendulumContinuous-v1",
+                          {**PENDULUM_KNOBS,
+                           "learning_starts": DDPG_LEARNING_STARTS})
+    t0 = time.perf_counter()
+    losses = [ddpg.train() for _ in range(DDPG_ITERS)]
+    ddpg_s = time.perf_counter() - t0
+    dl = ddpg.learner
+    updated = [m for m in losses
+               if m["replay_size"] >= DDPG_LEARNING_STARTS]
+    if not (len(updated) == DDPG_ITERS - 1 and all(
+            np.isfinite(m["critic_loss"]) and np.isfinite(m["actor_loss"])
+            for m in updated) and dl.policy_updates == dl.update_count
+            == len(updated) * PENDULUM_KNOBS["num_updates_per_iter"]):
+        raise AssertionError(f"[td3] DDPG: {losses[-1]}, "
+                             f"{dl.policy_updates} policy steps in "
+                             f"{dl.update_count} updates")
+    note("td3", met_at=gate["met_at"], best=gate["best"],
+         iter_ms=gate["iter_ms"], rollout_ms=gate["split"]["rollout"],
+         update_ms=gate["split"]["update"],
+         update_launch_calls=prof["launch_calls"],
+         graph_update_ms=prof["graph"]["wall_ms"], ddpg_s=ddpg_s)
+    log(offpolicy_line(
+        "td3", card, f"TD3 PendulumContinuous-v1 "
+        f"{PENDULUM_ANAKIN['num_envs']} envs x "
+        f"{PENDULUM_ANAKIN['unroll_length']} steps, "
+        f"{PENDULUM_KNOBS['num_updates_per_iter']} updates of "
+        f"{TD3Config().td3_batch_size} an iteration (a policy step every "
+        f"2nd), fp32, TF32 off", gate, prof)
+        + f"; DDPG {DDPG_ITERS} iterations in {ddpg_s:.2f} s: critic loss "
+        f"{updated[-1]['critic_loss']:.4f}, actor loss "
+        f"{updated[-1]['actor_loss']:.4f}, {dl.policy_updates} policy "
+        f"steps in {dl.update_count} updates")
+    if any(attn.LAUNCHES.values()):
+        raise AssertionError(f"[td3] launched {attn.LAUNCHES}")
+    return {"flash": dict(attn.LAUNCHES)}
+
+
 def timed(tag, phase, *args):
     """Run one phase, log its seconds and keep them for its record line."""
     RECORD.setdefault(tag, {})
@@ -4542,7 +5119,7 @@ def main():
                                     serve_model)
     serving.update(launches)
     # The runtime's phases share one cluster on this machine (its workers
-    # are subprocesses), up from [runtime] to [impala-actor]: [actor-train]
+    # are subprocesses), up from [runtime] to [dqn-actor]: [actor-train]
     # needs [train]'s losses, [trainer] [train]'s and [actor-train]'s
     # rates; [swap] runs after [swap-ref] because it perturbs the serving
     # model's weights.
@@ -4567,7 +5144,9 @@ def main():
         actor_rl = {"ppo-actor": timed("ppo-actor", phase_ppo_actor,
                                        card)["flash"],
                     "impala-actor": timed("impala-actor", phase_impala_actor,
-                                          card)["flash"]}
+                                          card)["flash"],
+                    "dqn-actor": timed("dqn-actor", phase_dqn_actor,
+                                       card)["flash"]}
     finally:
         ray_tpu_torch.shutdown()
     # [dp2] in a cluster of its own: its elastic leg's boundary snapshot
@@ -4607,6 +5186,9 @@ def main():
     torch.backends.cudnn.deterministic = False
     rl.update({f"ppo-{kind}": n
                for kind, n in timed("memory", phase_memory, card).items()})
+    for tag, phase in (("dqn", phase_dqn), ("sac", phase_sac),
+                       ("td3", phase_td3)):
+        rl[tag] = timed(tag, phase, card)["flash"]
     note("done", s=time.perf_counter() - t0)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     by_path = {"fp32": {"flash_fwd": fp32_launches}, **serving, **rlhf,

@@ -52,6 +52,13 @@ the attention's ``query``/``key``/``value`` kernels ``[d, heads,
 head_dim]`` (bias ``[heads, head_dim]``) and ``out`` kernel ``[heads,
 head_dim, d]``, flattened to ``[in, out]`` and transposed.
 
+``replay_family_from_flax``, for the replay family's networks in
+``ray_tpu_torch.rllib.algorithms`` (``dqn.QNetwork``,
+``sac.SquashedGaussianPolicy``, ``td3.DeterministicPolicy``: a flax
+``MLP`` at the top, ``{"params": {dense_{i}, out}}``, becomes ``net``;
+``sac.TwinQ``: ``{"q1": {"params": ...}, "q2": ...}`` becomes ``q1``,
+``q2``), the Dense kernels transposed.
+
 ``layerskip_draft`` builds the speculative-decoding draft of
 ``bench.py::bench_serving_spec`` (``:768-774``) from a target GPT-2: one
 layer, with copies of the target's ``wte``, ``wpe``, ``h.0`` and
@@ -274,6 +281,29 @@ def attention_actor_critic_from_flax(tree: Mapping[str, Any]
         tree = tree["params"]
     out: Dict[str, torch.Tensor] = {}
     _rl_walk(tree, out, "", _attention_leaf)
+    return out
+
+
+_REPLAY_MODULES = re.compile(r"net|q1|q2")
+
+
+def replay_family_from_flax(tree: Mapping[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """flax params of ``QNetwork``, ``SquashedGaussianPolicy``,
+    ``DeterministicPolicy`` (``init``'s output) or ``TwinQ`` -> port
+    state_dict.  Raises ``KeyError`` on a name it does not know."""
+    if set(tree) == {"params"}:
+        heads = {"net": tree["params"]}
+    elif set(tree) == {"q1", "q2"}:
+        heads = {}
+        for name, head in tree.items():
+            if set(head) != {"params"}:
+                raise KeyError(f"{name}: expected params, got {sorted(head)}")
+            heads[name] = head["params"]
+    else:
+        raise KeyError(f"unknown replay-family tree {sorted(tree)}")
+    out: Dict[str, torch.Tensor] = {}
+    _rl_walk(heads, out, "", lambda *args: False, known=_REPLAY_MODULES)
     return out
 
 

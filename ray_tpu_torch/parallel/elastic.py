@@ -59,6 +59,10 @@ from ray_tpu_torch.parallel import zero
 
 logger = logging.getLogger(__name__)
 
+# Seconds a call into the gang (setup, step, snapshot, a chaos arm) may
+# take: a rank that hangs fails the call instead of stalling the driver.
+_CALL_S = 600.0
+
 
 # ---- the slot-deterministic step ----
 def _slot_grads(loss_fn: Callable, sharder: zero.ZeroSharder, params: Any,
@@ -469,7 +473,8 @@ class ElasticMeshGroup:
             else None
         self.counters["elastic_weight_puts_total"] += 1
         self.group.run_stateful(_elastic_setup, self.spec, params_ref,
-                                opt_ref, snap["step"], self._version)
+                                opt_ref, snap["step"], self._version,
+                                timeout=_CALL_S)
         self._gang_step = snap["step"]
         self._gang_calls = 0
 
@@ -485,7 +490,8 @@ class ElasticMeshGroup:
     def _refresh_snapshot(self, force: bool = False):
         if not force and self._step % self.snapshot_interval:
             return
-        out = self.group.run_stateful(_elastic_snapshot_fn)
+        out = self.group.run_stateful(_elastic_snapshot_fn,
+                                      timeout=_CALL_S)
         snap = next(s for s in out if s is not None)
         self._snapshot = snap
 
@@ -514,7 +520,7 @@ class ElasticMeshGroup:
         # (re)armed, so nth counts elastic steps from NOW.
         spec = f"elastic_step:{rank}:{int(after_steps)}:*"
         ray_tpu_torch.get(self.group.workers[rank].setup_env.remote(
-            {chaos.KILL_SCHEDULE_ENV: spec}))
+            {chaos.KILL_SCHEDULE_ENV: spec}), timeout=_CALL_S)
 
     def pending_steps(self) -> int:
         """Steps queued behind the gang (the autoscaler gang policy's
@@ -533,7 +539,8 @@ class ElasticMeshGroup:
             try:
                 while self._gang_step < target:
                     idx = self._gang_step
-                    loss = self.group.run_stateful(_elastic_step_fn, idx)[0]
+                    loss = self.group.run_stateful(
+                        _elastic_step_fn, idx, timeout=_CALL_S)[0]
                     if idx < self._step:
                         self.counters["elastic_replayed_steps_total"] += 1
                     self._gang_step += 1

@@ -39,6 +39,11 @@ class Algorithm:
     # can record a CUDA event at each; None outside measurements.
     on_phase: Optional[Callable[[str], None]] = None
 
+    # Whether the Anakin step takes ``num_devices`` (PPO, IMPALA and APPO:
+    # ``mesh.setup_data_mesh``).  Any other path refuses it, as in the JAX
+    # package, rather than run on one device while the user believes in N.
+    _data_mesh_capable = True
+
     def __init__(self, config=None):
         if config is None:
             config = self._default_config_cls()
@@ -49,9 +54,7 @@ class Algorithm:
 
     # ---- lifecycle ----
     def setup(self):
-        if self.config.mode != "anakin":
-            # Actor mode has no data-parallel learner: refuse num_devices
-            # rather than run on one device while the user believes in N.
+        if self.config.mode != "anakin" or not self._data_mesh_capable:
             from ray_tpu_torch.rllib.utils.mesh import reject_data_mesh
 
             reject_data_mesh(
@@ -80,11 +83,14 @@ class Algorithm:
         return metrics
 
     def stop(self):
-        """Close the sample stream and kill the rollout workers (actor
-        mode; Anakin mode holds neither)."""
+        """Close the sample stream or the replay plane and kill the
+        rollout workers (actor mode; Anakin mode holds none of them)."""
         stream = getattr(self, "_stream", None)
         if stream is not None:
             stream.close()
+        rb = getattr(self, "_rb", None)
+        if rb is not None:
+            rb.close()
         workers = getattr(self, "workers", None)
         if workers is not None:
             workers.stop()
@@ -150,11 +156,12 @@ class Algorithm:
     def _training_step_anakin(self) -> Dict[str, Any]:
         self._anakin_state, metrics = self._train_step(self._anakin_state,
                                                        self.on_phase)
-        # ONE device-to-host read for every metric: the iteration's only
-        # sync with the device.
-        names = list(metrics)
+        # ONE device-to-host read for every metric on the device: the
+        # iteration's only sync with it (host numbers pass as they are).
+        names = [k for k, v in metrics.items() if torch.is_tensor(v)]
         values = torch.stack([metrics[k].float() for k in names]).tolist()
-        metrics = self._episode_counter_metrics(dict(zip(names, values)))
+        metrics = self._episode_counter_metrics(
+            {**metrics, **dict(zip(names, values))})
         metrics["num_env_steps_sampled_this_iter"] = self._steps_per_iter
         return metrics
 

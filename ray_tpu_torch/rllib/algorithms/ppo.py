@@ -215,6 +215,11 @@ def make_anakin_ppo(config: AlgorithmConfig, device: torch.device):
     "gae" (last value, GAE, normalisation) and its "sgd", and with
     "start" before them: a caller can record a CUDA event at each."""
     env = make_env(config)
+    if env.num_actions is None:
+        # The JAX package fails here too, building a Dense of None units.
+        raise NotImplementedError(
+            f"PPO's policy is categorical: the continuous env "
+            f"{config.env!r} is for SAC, TD3 or DDPG")
     spec = RLModuleSpec.for_env(env, tuple(config.hiddens))
     state, update_fn = init_anakin(
         config, device, env, spec.build(torch.Generator().manual_seed(

@@ -156,8 +156,13 @@ class Pendulum(TorchEnv):
         th = state["th"]
         return torch.stack([torch.cos(th), torch.sin(th), state["thdot"]], -1)
 
+    def _torque(self, action: torch.Tensor) -> torch.Tensor:
+        """The policy's action as torque; the continuous subclass
+        overrides this one hook, so the dynamics stay in one place."""
+        return (action.to(torch.float32) - 1.0) * self.max_torque
+
     def step_core(self, state: State, action: torch.Tensor):
-        u = (action.to(torch.float32) - 1.0) * self.max_torque
+        u = self._torque(action)
         th, thdot = state["th"], state["thdot"]
         # A floored modulo, as jnp's %: the result takes the divisor's sign.
         norm_th = torch.remainder(th + math.pi, 2 * math.pi) - math.pi
@@ -168,6 +173,20 @@ class Pendulum(TorchEnv):
         th = th + thdot * self.dt
         t = state["t"] + 1
         return {"th": th, "thdot": thdot, "t": t}, -cost, t >= self.max_steps
+
+
+class PendulumContinuous(Pendulum):
+    """Pendulum-v1 with its real continuous torque, the SAC family's env:
+    ``action`` is ``[N, 1]`` float32, clipped to [-2, 2]."""
+
+    num_actions = None  # continuous
+    action_dim = 1
+    action_low = -2.0
+    action_high = 2.0
+
+    def _torque(self, action: torch.Tensor) -> torch.Tensor:
+        return action.to(torch.float32).reshape(action.shape[0]).clamp(
+            self.action_low, self.action_high)
 
 
 def _grid(device, h: int, w: int):
@@ -533,20 +552,14 @@ REGISTRY = {
     "CartPole-v1": CartPole,
     "StatelessCartPole-v1": StatelessCartPole,
     "Pendulum-v1": Pendulum,
+    "PendulumContinuous-v1": PendulumContinuous,
     "Breakout-MinAtar-v0": Breakout,
     "Breakout-Atari84-v0": Breakout84,
     "SpaceInvaders-MinAtar-v0": SpaceInvaders,
 }
-# Envs of the JAX registry that come with a later slice: asking for one
-# raises, naming it.
-LATER = {"PendulumContinuous-v1": (
-    "its continuous action belongs to the SAC family, which is ported in "
-    "its own slice (ROADMAP, Queue 1 item 7)")}
 
 
 def make_torch_env(name: str):
-    if name in LATER:
-        raise NotImplementedError(f"{name} is not ported yet: {LATER[name]}")
     if name not in REGISTRY:
         raise ValueError(f"unknown torch env {name!r}; have {list(REGISTRY)}")
     return REGISTRY[name]()

@@ -18,8 +18,11 @@ What differs from the JAX package: the worker's ``rng`` (a PRNG key, one
 split per fragment) is a CPU ``torch.Generator`` seeded
 ``seed + worker_index`` that every action draw of the worker advances, and
 the GAE columns come from ``gae_torch`` on CPU tensors where the JAX
-worker runs ``gae_jax``.  The off-policy worker, whose ``sample_publish``
-feeds the replay plane, is not ported yet (ROADMAP, Queue 1 item 7).
+worker runs ``gae_jax``.  The off-policy worker (DQN/SAC/TD3, whose
+``sample_publish`` feeds the replay plane) takes its draws the same way,
+from a CPU generator seeded ``seed + worker_index``, and its policy is a
+``(module, act)`` pair from a cloudpickled factory where the JAX worker
+jits an ``act(params, obs, key, explore_arg)``.
 """
 from __future__ import annotations
 
@@ -37,9 +40,10 @@ from ray_tpu_torch.rllib.evaluation.postprocessing import gae_torch
 from ray_tpu_torch.rllib.policy.sample_batch import SampleBatch
 
 _CLOSE_S = 10.0  # seconds stop() waits for the workers to close envs
-_OFF_POLICY = ("the off-policy rollout worker and the replay plane it "
-               "publishes to are not ported yet (ROADMAP, Queue 1 item 7: "
-               "DQN, SAC and TD3 in actor mode)")
+# Seconds a round of worker calls may take before its gets give up: a
+# worker that hangs (not one that dies) must fail the round, not stall
+# the driver forever.  A fragment takes seconds at the largest sizes.
+_ROUND_S = 600.0
 
 
 class FragmentBuffers:
@@ -264,20 +268,126 @@ class RolloutWorker:
         return batch, completed, info
 
 
+@ray_tpu_torch.remote
 class OffPolicyRolloutWorker:
-    """The raw-transition worker of DQN/SAC/TD3 in actor mode: not ported
-    yet."""
+    """CPU actor collecting RAW TRANSITIONS for the replay-family
+    algorithms (DQN/SAC/TD3) — the Ape-X shape: rollout actors feed a
+    learner-owned replay buffer (reference: ApexDQN's distributed replay
+    actors + the learner-thread consumer,
+    rllib/execution/multi_gpu_learner_thread.py:20).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_OFF_POLICY)
+    The per-algorithm piece is an ``act_factory`` (cloudpickled closure)
+    returning ``(module, act)``: ``module`` takes the learner's state
+    dicts, and ``act(obs, generator, explore_arg) -> action`` (CPU
+    tensors) is the policy — epsilon for DQN, noise scale for TD3, unused
+    for SAC's stochastic policy.  Torch runs on one intra-op thread."""
 
-    @classmethod
-    def options(cls, **kwargs):
-        raise NotImplementedError(_OFF_POLICY)
+    def __init__(self, env_name, act_factory_blob, worker_index: int,
+                 num_envs: int, fragment_length: int, seed: int,
+                 env_parallelism: str = "serial",
+                 env_workers: Optional[int] = None):
+        import cloudpickle
 
-    @classmethod
-    def remote(cls, *args, **kwargs):
-        raise NotImplementedError(_OFF_POLICY)
+        torch.set_num_threads(1)
+        self.env = VectorEnv(lambda: make_py_env(env_name),
+                             num_envs, seed + worker_index * 1000,
+                             mode=env_parallelism, num_workers=env_workers)
+        self.device = resolve_device("cpu")
+        module, self._act = cloudpickle.loads(act_factory_blob)()
+        self.module = module.to(self.device).eval()
+        self._has_weights = False
+        self.fragment_length = fragment_length
+        self.rng = torch.Generator(device=self.device).manual_seed(
+            seed + worker_index)
+        # The replay-family networks are flat MLPs: pixel obs flatten to
+        # float32 vectors (a conv replay stack would need obs-shaped
+        # buffers end to end).
+        self.obs = self._flat(self.env.reset_all())
+        self.ep_returns = np.zeros(num_envs)
+        self.completed: List[float] = []
+        self._bufs = FragmentBuffers(fragment_length)
+        self._weights_version = 0
+
+    def _flat(self, obs: np.ndarray) -> np.ndarray:
+        return obs.astype(np.float32).reshape(obs.shape[0], -1)
+
+    def set_weights(self, state_dict, version: int = 0):
+        self.module.load_state_dict(state_dict)
+        self._has_weights = True
+        self._weights_version = int(version)
+        return version
+
+    def ping(self):
+        return "ok"
+
+    def pid(self):
+        return os.getpid()
+
+    def close(self):
+        """Close the envs (see ``RolloutWorker.close``)."""
+        self.env.close()
+        return True
+
+    def sample(self, explore_arg: float = 0.0):
+        """T steps of raw transitions: column dict + completed returns."""
+        if not self._has_weights:
+            raise RuntimeError("OffPolicyRolloutWorker.sample before any "
+                               "set_weights")
+        T = self.fragment_length
+        bufs = self._bufs
+        obs = self.obs
+        with torch.inference_mode():
+            for t in range(T):
+                action = self._act(torch.from_numpy(obs), self.rng,
+                                   explore_arg).numpy()
+                next_obs, reward, done, _ = self.env.step(action)
+                next_flat = self._flat(next_obs)
+                bufs.store("obs", t, obs)
+                bufs.store("actions", t, action)
+                bufs.store("rewards", t, reward)
+                bufs.store("next_obs", t, next_flat)
+                bufs.store("dones", t, done)
+                self.ep_returns += reward
+                for i, d in enumerate(done):
+                    if d:
+                        self.completed.append(float(self.ep_returns[i]))
+                        self.ep_returns[i] = 0.0
+                obs = next_flat
+        self.obs = obs
+        cols = bufs.arrays()
+        n = cols["rewards"].size
+        act_arr = cols["actions"]
+        batch = {
+            "obs": cols["obs"].reshape(n, -1),
+            "actions": act_arr.reshape(n, -1)
+            if act_arr.ndim > 2 else act_arr.reshape(n),
+            "rewards": cols["rewards"].reshape(n).astype(np.float32),
+            "next_obs": cols["next_obs"].reshape(n, -1),
+            "dones": cols["dones"].reshape(n).astype(np.float32),
+        }
+        completed, self.completed = self.completed, []
+        return batch, completed
+
+    def sample_publish(self, explore_arg: float = 0.0, gamma: float = 0.99,
+                       n_step: int = 1):
+        """The replay-plane publish path: collect one fragment, fold
+        n-step returns HERE (the worker owns the contiguity), publish the
+        columns to the object plane with one put_many burst, and return
+        only the refs + metadata — transition bytes never ride the RPC
+        reply, so the learner's insert path is pure ref bookkeeping."""
+        batch, completed = self.sample(explore_arg)
+        if n_step > 1:
+            from ray_tpu_torch.rllib.execution.replay_plane import \
+                compute_nstep
+
+            batch = compute_nstep(batch, len(self.ep_returns), gamma,
+                                  n_step)
+        cols = sorted(batch)
+        refs = ray_tpu_torch.put_many([np.ascontiguousarray(batch[c])
+                                       for c in cols])
+        meta = {"n": len(batch["rewards"]),
+                "version": self._weights_version}
+        return dict(zip(cols, refs)), meta, completed
 
 
 class WorkerSet:
@@ -288,9 +398,10 @@ class WorkerSet:
 
     MAX_FAILURES_BEFORE_RECREATE = 2
 
-    def __init__(self, config, module_spec):
+    def __init__(self, config, module_spec, worker_factory=None):
         self._config = config
         self._module_spec = module_spec
+        self._worker_factory = worker_factory
         n = max(1, config.num_rollout_workers)
         self.workers = [self._make_worker(i) for i in range(n)]
         self._failures = [0] * n
@@ -299,6 +410,8 @@ class WorkerSet:
         self.num_replaced = 0
 
     def _make_worker(self, i: int):
+        if self._worker_factory is not None:
+            return self._worker_factory(i)
         c = self._config
         return RolloutWorker.options(max_restarts=1).remote(
             c.env, self._module_spec, i, c.num_envs_per_worker,
@@ -321,7 +434,8 @@ class WorkerSet:
         # runs when a worker actually failed, to attribute the failure.
         if len(futures) > 1:
             try:
-                values = ray_tpu_torch.get_many([f for _, f in futures])
+                values = ray_tpu_torch.get_many([f for _, f in futures],
+                                                timeout=_ROUND_S)
                 for (i, _f), v in zip(futures, values):
                     out.append((i, v))
                     self._failures[i] = 0
@@ -330,7 +444,7 @@ class WorkerSet:
                 out = []
         for i, f in futures:
             try:
-                out.append((i, ray_tpu_torch.get(f)))
+                out.append((i, ray_tpu_torch.get(f, timeout=_ROUND_S)))
                 self._failures[i] = 0
             except ray_tpu_torch.exceptions.RayTpuError:
                 if self._count_failure(i):
@@ -416,14 +530,18 @@ class WorkerSet:
     def num_healthy_workers(self) -> int:
         return sum(1 for n in self._failures if n == 0)
 
-    def publish_sync(self, *args):
-        """sample_sync's replay-plane sibling: not ported yet."""
-        raise NotImplementedError(_OFF_POLICY)
+    def publish_sync(self, *args) -> List[Tuple[Any, Dict[str, Any], list]]:
+        """sample_sync's replay-plane sibling: every worker publishes its
+        fragment to the object plane and replies (refs, meta, completed)
+        — same dead-worker tolerance, no payload bytes in the replies."""
+        return [r for _i, r in self._foreach(
+            lambda w: w.sample_publish.remote(*args))]
 
     def sample_sync(self, *args) -> Tuple[List[Any], List[float]]:
         """synchronous_parallel_sample (reference:
         rllib/execution/rollout_ops.py:21) with dead-worker tolerance.
-        Extra args forward to the workers' sample()."""
+        Extra args forward to the workers' sample() (the off-policy
+        workers take the exploration argument per call)."""
         batches, returns = [], []
         for _i, (b, eps) in self._foreach(
                 lambda w: w.sample.remote(*args)):

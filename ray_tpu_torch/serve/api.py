@@ -14,6 +14,11 @@ from typing import Any, Dict, List, Optional
 
 import ray_tpu_torch
 
+# Seconds a replica's reconfigure or a proxy's start may take before its
+# get gives up: a replica that hangs fails the call instead of stalling
+# the caller forever.  Requests stay unbounded, as in the reference.
+_GET_S = 600.0
+
 _deployments: Dict[str, "Deployment"] = {}
 _proxy = None
 
@@ -274,7 +279,8 @@ class Deployment:
         r = _Replica.options(**opts).remote(self._func, self._init_args,
                                             self._init_kwargs)
         if self.user_config is not None:
-            ray_tpu_torch.get(r.reconfigure.remote(self.user_config))
+            ray_tpu_torch.get(r.reconfigure.remote(self.user_config),
+                              timeout=_GET_S)
         self._replicas.append(r)
         return r
 
@@ -647,7 +653,8 @@ def start_http_proxies(port: int = 0) -> Dict[str, int]:
         actor = HTTPProxyActor.options(
             scheduling_strategy=NodeAffinitySchedulingStrategy(node_hex),
             max_concurrency=16).remote(port)
-        out[node_hex] = ray_tpu_torch.get(actor.ready.remote())
+        out[node_hex] = ray_tpu_torch.get(actor.ready.remote(),
+                                          timeout=_GET_S)
         with _proxy_lock:
             _node_proxies.append(actor)
     broadcast_routes()

@@ -464,12 +464,16 @@ def test_actor_mode_refusals(cluster):
     with pytest.raises(NotImplementedError,
                        match="num_devices.*Queue 1 item 6"):
         _config().resources(num_devices=1).build()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tws.OffPolicyRolloutWorker.remote("CartPole-v1")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tws.OffPolicyRolloutWorker.options(max_restarts=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        object.__new__(tws.WorkerSet).publish_sync()
+    # The replay family's actor modes refuse the wrong action space before
+    # they start a worker.
+    from ray_tpu_torch.rllib import DQNConfig, SACConfig
+
+    with pytest.raises(ValueError, match="continuous"):
+        (SACConfig().environment("CartPole-v1")
+         .rollouts(num_rollout_workers=1).resources(device="cpu").build())
+    with pytest.raises(ValueError, match="discrete action env"):
+        (DQNConfig().environment("Pendulum-v1")
+         .rollouts(num_rollout_workers=1).resources(device="cpu").build())
     if not torch.cuda.is_available():
         # The learner defaults to CUDA: without it the build raises
         # before it starts any worker.

@@ -44,12 +44,20 @@ def gangs():
     import ray_tpu_torch as rt
     from ray_tpu_torch.parallel import MeshGroup
 
-    rt.init(num_cpus=6, num_gpus=0, object_store_memory=256 * 1024**2)
-    groups = {w: MeshGroup(w, bootstrap_timeout=T) for w in (2, 4)}
-    yield groups
-    for g in groups.values():
-        g.shutdown()
-    rt.shutdown()
+    # Two CPUs past the gangs' six: a suite run under six workers once
+    # waited 120 s for a gang's placement group with exactly six declared.
+    rt.init(num_cpus=8, num_gpus=0, object_store_memory=256 * 1024**2)
+    groups = {}
+    try:
+        # Shut down whatever formed, even when a gang's rendezvous fails:
+        # a leaked cluster loads every test file that runs after this one.
+        for w in (2, 4):
+            groups[w] = MeshGroup(w, bootstrap_timeout=T)
+        yield groups
+    finally:
+        for g in groups.values():
+            g.shutdown()
+        rt.shutdown()
 
 
 def _inputs(seed, shape):

@@ -440,7 +440,12 @@ def test_random_policy_returns_match_jax(name, n, steps, lo, hi):
 
 
 def test_registry_refuses_the_continuous_pendulum():
-    assert set(torch_envs.REGISTRY) == set(jax_envs.REGISTRY) - {
-        "PendulumContinuous-v1"}
-    with pytest.raises(NotImplementedError, match="SAC.*Queue 1 item 7"):
-        torch_envs.make_torch_env("PendulumContinuous-v1")
+    """The registry is the JAX package's, the continuous pendulum
+    included since the SAC family came (its steps are held to JAX's in
+    tests/test_torch_sac_td3.py); an unknown name still raises."""
+    assert set(torch_envs.REGISTRY) == set(jax_envs.REGISTRY)
+    env = torch_envs.make_torch_env("PendulumContinuous-v1")
+    assert isinstance(env, torch_envs.PendulumContinuous)
+    assert env.num_actions is None and env.action_dim == 1
+    with pytest.raises(ValueError, match="unknown torch env"):
+        torch_envs.make_torch_env("PendulumContinuous-v2")

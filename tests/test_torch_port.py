@@ -147,7 +147,7 @@ def test_engine_refuses_a_model_on_another_device():
     (lambda rl: rl.APPOConfig().rollouts(num_rollout_workers=2)
      .resources(num_devices=2), "num_devices.*Queue 1 item 6"),
     (lambda rl: rl.PPOConfig().environment("PendulumContinuous-v1"),
-     "SAC.*Queue 1 item 7"),
+     "categorical.*SAC, TD3 or DDPG"),
 ], ids=["impala_actor_mode", "appo_actor_mode", "pendulum_continuous"])
 def test_later_slices_raise_naming_them(call, match):
     from ray_tpu_torch import rllib

@@ -335,7 +335,7 @@ class _Continuous:
             sgd_minibatch_size=256, model={"use_lstm": True}), ValueError,
      "silently dropped"),
     (lambda: PPOConfig().environment("PendulumContinuous-v1").training(
-        model={"use_lstm": True}), NotImplementedError, "SAC"),
+        model={"use_lstm": True}), ValueError, "SAC family"),
 ], ids=["exclusive", "pixels", "continuous_lstm", "continuous_attention",
         "dropped_sequences", "pendulum_continuous"])
 def test_memory_ppo_refuses_as_the_reference(config, error, match):
