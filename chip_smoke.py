@@ -116,8 +116,20 @@ three main paths with random weights from a seed:
   ring on the card, each update replayed as a CUDA graph (held once
   against the same update eager): DQN on CartPole-v1 to reward 150
   within 90 iterations (``[dqn]``), SAC and TD3 on PendulumContinuous-v1
-  to -300 within 200 (``[sac]``, ``[td3]``), then DDPG for 5 iterations.
-  No RL path reaches a flash kernel (checked, path by path).
+  to -300 within 200 (``[sac]``, ``[td3]``), then DDPG for 5 iterations;
+  then the rest of RLlib, each at its JAX test's configuration, gate and
+  iteration budget: ``[offline]`` (a PPO expert's greedy rollout written
+  with ``JsonWriter`` and BC cloning it: bc_loss < 0.3, score >= 100;
+  MARWIL on 60%-random scripted data: score >= 250), ``[es]`` (>= 120
+  within 30 generations), ``[bandit]`` (LinUCB, LinTS: the 9th
+  iteration's regret < 0.3x the first's), ``[dynaq]`` (>= 100 within 80,
+  the model loss falling), ``[qmix]`` (>= 12 within 150) and ``[mappo]``
+  (>= 28 within 60), each with ms an iteration and launch calls eager and
+  from its CUDA graphs; ``[cli]`` runs ``python -m
+  ray_tpu_torch.rllib.train -f`` on a JSON file in a process of its own
+  beside them.  Every Anakin PPO step replays its minibatch updates from
+  CUDA graphs.  No RL path reaches a flash kernel (checked, path by
+  path).
 
 Each C entry picks its kernel by dtype (every bf16 kernel: ``wgmma``;
 every fp32 kernel: ``fma``); the script checks and prints the routes
@@ -170,14 +182,25 @@ from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as attn
 from ray_tpu_torch.rllib import (
     APPOConfig,
+    BanditLinTSConfig,
+    BanditLinUCBConfig,
+    BCConfig,
     DDPGConfig,
     DQNConfig,
+    DynaQConfig,
+    ESConfig,
     IMPALAConfig,
+    MAPPOConfig,
+    MARWILConfig,
     PPOConfig,
+    QMixConfig,
     RLModuleSpec,
     SACConfig,
     TD3Config,
 )
+from ray_tpu_torch.rllib.offline import JsonWriter
+from ray_tpu_torch.rllib.policy.sample_batch import SampleBatch
+from ray_tpu_torch.rllib.utils import mesh as rl_mesh
 from ray_tpu_torch.rllib.env.py_envs import PyCartPole, VectorEnv
 from ray_tpu_torch.rllib.env.torch_envs import Breakout84, make_torch_env
 from ray_tpu_torch.rllib.evaluation.worker_set import (
@@ -4450,7 +4473,8 @@ def phase_ppo(card) -> dict:
          floor_met_at=gate["met_at"])
     log(f"[ppo] {card} | PPO Breakout-Atari84 {PPO_ENVS} envs x "
         f"{PPO_UNROLL} steps, Nature CNN ({n_params} parameters), fp32, "
-        f"TF32 off, eager: {PPO_TIMED_ITERS} iterations in "
+        f"TF32 off, eager rollout, SGD updates from CUDA graphs: "
+        f"{PPO_TIMED_ITERS} iterations in "
         f"{timed['seconds']:.3f} s = {timed['steps_per_s']:.0f} "
         f"env-steps/s, {iter_ms:.1f} ms an iteration; "
         f"split by CUDA events (ms an iteration): rollout "
@@ -4627,7 +4651,8 @@ def phase_ppo_minatar(card) -> dict:
     note("ppo-minatar", env_steps_per_s=timed["steps_per_s"],
          iter_ms=timed["ms"], floor_met_at=gate["met_at"])
     log(f"[ppo-minatar] {card} | PPO Breakout-MinAtar {MINATAR_ENVS} envs "
-        f"x {MINATAR_UNROLL} steps, MinAtar CNN, fp32, TF32 off, eager: "
+        f"x {MINATAR_UNROLL} steps, MinAtar CNN, fp32, TF32 off, eager "
+        f"rollout, SGD updates from CUDA graphs: "
         f"reward floor {MINATAR_REWARD_FLOOR} met at iteration "
         f"{gate['met_at']} ({gate['reward']:.2f}) in {gate['seconds']:.1f} "
         f"s; {PPO_TIMED_ITERS} iterations in {timed['seconds']:.3f} s = "
@@ -5090,6 +5115,542 @@ def phase_td3(card) -> dict:
     return {"flash": dict(attn.LAUNCHES)}
 
 
+# ---------------------------------------------------------------------------
+# The rest of RLlib ([offline], [es], [bandit], [dynaq], [qmix], [mappo]):
+# each at its JAX test's configuration, gate and iteration budget, on the
+# card in fp32 with TF32 off; then the train CLI on a JSON file ([cli])
+# ---------------------------------------------------------------------------
+# [offline], BC: tests/test_sac_offline.py:120-168 — a PPO expert on
+# CartPole-v1 (32 envs x 64 steps) trained until its best reward reaches
+# 400 within 80 iterations (and must reach 150), its greedy rollout (32 x
+# 64) written with JsonWriter, BC for 30 iterations: bc_loss < 0.3 and a
+# greedy score >= 100 over 500 steps.
+BC_EXPERT = {"num_envs": 32, "unroll_length": 64}
+BC_EXPERT_TRAINING = {"lr": 3e-4, "num_sgd_iter": 4,
+                      "sgd_minibatch_size": 512, "entropy_coeff": 0.01}
+BC_EXPERT_STOP, BC_EXPERT_FLOOR, BC_EXPERT_MAX_ITERS = 400.0, 150.0, 80
+BC_ITERS, BC_LOSS_BOUND, BC_SCORE_FLOOR = 30, 0.3, 100.0
+# [offline], MARWIL: tests/test_more_algos.py:160-212 — 32 envs x 96
+# steps of a balancing heuristic diluted with 60% random actions, beta 2,
+# 40 iterations, a greedy score >= 250 over 500 steps.
+MARWIL_FRAC_RANDOM, MARWIL_ITERS, MARWIL_SCORE_FLOOR = 0.6, 40, 250.0
+OFFLINE_EVAL_STEPS = 500
+# [es]: tests/test_algo_families.py — population 128, sigma 0.1, lr
+# 0.03, 200-step episodes: best >= 120 within 30 generations.
+ES_TRAINING = {"population_size": 128, "noise_stdev": 0.1, "lr": 0.03,
+               "episode_length": 200}
+ES_FLOOR, ES_MAX_ITERS = 120.0, 30
+# [bandit]: the 9th iteration's regret < 0.3x the first's (LinUCB seed 0,
+# LinTS seed 1), 256 rounds an iteration.
+BANDIT_ITERS, BANDIT_REGRET_RATIO = 9, 0.3
+BANDITS = ((BanditLinUCBConfig, "LinUCB", 0), (BanditLinTSConfig, "LinTS",
+                                                 1))
+# [dynaq]: 32 envs x 16 steps, lr 1e-3, learning_starts 500, 8 Q updates
+# an iteration, epsilon over 15,000 steps: best >= 100 within 80
+# iterations, and the model loss falls.
+DYNAQ_ANAKIN = {"num_envs": 32, "unroll_length": 16}
+DYNAQ_TRAINING = {"lr": 1e-3, "learning_starts": 500,
+                  "num_updates_per_iter": 8, "epsilon_decay_steps": 15_000}
+DYNAQ_FLOOR, DYNAQ_MAX_ITERS = 100.0, 80
+# [qmix]: the default QMixConfig on CoordinationGame-v0: best >= 12 of 16
+# within 150 iterations.
+QMIX_FLOOR, QMIX_MAX_ITERS = 12.0, 150
+# [mappo]: tests/test_multi_agent.py — 32 games x 32 steps, lr 1e-3, 4
+# epochs of 512: best team return >= 28 within 60 iterations.
+MAPPO_ANAKIN = {"num_envs": 32, "unroll_length": 32}
+MAPPO_TRAINING = {"lr": 1e-3, "num_sgd_iter": 4, "sgd_minibatch_size": 512,
+                  "entropy_coeff": 0.01}
+MAPPO_FLOOR, MAPPO_MAX_ITERS = 28.0, 60
+# [cli]: `python -m ray_tpu_torch.rllib.train -f <json>` on the card.
+# The device of these phases' own tensors (the expert's and the scripted
+# rollouts, MAPPO's profiled minibatch).
+RL_DEVICE = "cuda"
+CLI_EXPERIMENT = {"linucb": {"run": "BanditLinUCB",
+                             "env": "LinearBandit-v0",
+                             "stop": {"training_iteration": 2},
+                             "config": {"seed": 0}}}
+
+
+def no_flash(tag) -> dict:
+    if any(attn.LAUNCHES.values()):
+        raise AssertionError(f"[{tag}] launched {attn.LAUNCHES}")
+    return {"flash": dict(attn.LAUNCHES)}
+
+
+def on_card(tag, tensors) -> None:
+    where = devices(tensors)
+    if where != {"cuda"}:
+        raise AssertionError(f"[{tag}] state on {where}")
+
+
+def marked_iteration(algo, names) -> tuple:
+    """One ``algo.train()`` with a CUDA event at each phase its step
+    marks: (metrics, ms between consecutive marks by name)."""
+    marks = []
+
+    def mark(name):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append((name, event))
+
+    algo.on_phase = mark
+    m = algo.train()
+    algo.on_phase = None
+    torch.cuda.synchronize()
+    if [n for n, _ in marks] != list(names):
+        raise AssertionError(f"phase marks {[n for n, _ in marks]}")
+    return m, {names[j + 1]: marks[j][1].elapsed_time(marks[j + 1][1])
+               for j in range(len(names) - 1)}
+
+
+def eager_and_graphed(calls, fn) -> dict:
+    """``fn()`` profiled with ``calls`` (a ``CapturedCalls``) eager, then
+    replayed from its graph: launch calls and device ms of each."""
+    calls.use_graphs = False
+    try:
+        eager = profile_device(fn)
+    finally:
+        calls.use_graphs = True
+    graph = profile_device(fn)
+    return {"eager": eager, "graph": graph}
+
+
+def launch_text(prof, what) -> str:
+    return (f"{what}: {prof['eager']['launch_calls']} launch calls, "
+            f"{prof['eager']['device_ms']:.3f} ms on the card of "
+            f"{prof['eager']['wall_ms']:.3f} ms eager; "
+            f"{prof['graph']['launch_calls']} launch calls, "
+            f"{prof['graph']['device_ms']:.3f} ms of "
+            f"{prof['graph']['wall_ms']:.3f} ms from its CUDA graph")
+
+
+def write_batch(path, columns) -> str:
+    writer = JsonWriter(path)
+    writer.write(SampleBatch(columns))
+    writer.close()
+    return path
+
+
+def expert_rollout(path, module, num_envs=32, steps=64, seed=3) -> str:
+    """The expert's greedy rollout on the card, written with JsonWriter."""
+    env = make_torch_env("CartPole-v1")
+    g = torch.Generator(device=RL_DEVICE).manual_seed(seed)
+    states, obs = env.reset(num_envs, g, RL_DEVICE)
+    all_obs, all_act = [], []
+    with torch.no_grad():
+        for _ in range(steps):
+            act = module.forward_inference(obs)
+            states, obs2, _r, _d, _ = env.step(states, act, g)
+            all_obs.append(obs)
+            all_act.append(act)
+            obs = obs2
+    return write_batch(path, {"obs": torch.cat(all_obs).cpu().numpy(),
+                              "actions": torch.cat(all_act).cpu().numpy()})
+
+
+def scripted_rollout(path, frac_random, num_envs=32, steps=96, seed=0):
+    """tests/test_more_algos.py's mixture data on the card: the balancing
+    heuristic, diluted with random actions, env-major, each env's last
+    step marked done."""
+    env = make_torch_env("CartPole-v1")
+    g = torch.Generator(device=RL_DEVICE).manual_seed(seed)
+    states, obs = env.reset(num_envs, g, RL_DEVICE)
+    cols = {"obs": [], "actions": [], "rewards": [], "dones": []}
+    for _ in range(steps):
+        good = (obs[:, 2] + 0.3 * obs[:, 3] > 0).to(torch.int64)
+        rand = torch.randint(0, 2, good.shape, generator=g,
+                             device=RL_DEVICE)
+        use_rand = torch.rand(good.shape, generator=g,
+                              device=RL_DEVICE) < frac_random
+        act = torch.where(use_rand, rand, good)
+        states, obs2, rew, done, _ = env.step(states, act, g)
+        for k, v in (("obs", obs), ("actions", act), ("rewards", rew),
+                     ("dones", done.to(torch.float32))):
+            cols[k].append(v)
+        obs = obs2
+    cols["dones"][-1] = torch.ones(num_envs, device=RL_DEVICE)
+    stacked = {k: torch.stack(v, 1).reshape(-1, *v[0].shape[1:]).cpu()
+               .numpy() for k, v in cols.items()}
+    return write_batch(path, stacked)
+
+
+def offline_run(algo, iters, tag) -> dict:
+    """``iters`` iterations of BC or MARWIL (host-timed, each ending in its
+    metrics' read), the greedy score, one pass profiled eager and from its
+    graph."""
+    loss_key = "bc_loss" if tag == "BC" else "marwil_loss"
+    on_card(tag, [*algo.module.parameters(), *algo._data.values()])
+    first_met, host_s = None, []
+    for i in range(iters):
+        m = algo.train()
+        host_s.append(m["time_this_iter_s"])
+        if not np.isfinite(m[loss_key]):
+            raise AssertionError(f"[offline] {tag} iteration {i}: {m}")
+        if tag == "BC" and first_met is None and m[loss_key] < BC_LOSS_BOUND:
+            first_met = i
+    t0 = time.perf_counter()
+    score = algo.evaluate(num_steps=OFFLINE_EVAL_STEPS)["episode_reward_mean"]
+    eval_s = time.perf_counter() - t0
+    prof = eager_and_graphed(algo._calls,
+                             lambda: algo._calls.run(algo._sgd_pass))
+    return {"metrics": m, "score": score, "eval_s": eval_s,
+            "first_met": first_met, "prof": prof,
+            "iter_ms": float(np.mean(host_s[1:] or host_s)) * 1e3,
+            "updates": algo.config.num_sgd_per_iter}
+
+
+def phase_offline(card) -> dict:
+    """BC and MARWIL at their JAX tests' configurations and gates (see
+    BC_EXPERT and MARWIL_FRAC_RANDOM), from JSON-lines files written and
+    read back through ``rllib/offline``."""
+    import tempfile
+
+    zero_launches()
+    t0 = time.perf_counter()
+    expert = (PPOConfig().environment("CartPole-v1").anakin(**BC_EXPERT)
+              .training(**BC_EXPERT_TRAINING).debugging(seed=SEED).build())
+    best, expert_iters = float("-inf"), 0
+    for expert_iters in range(1, BC_EXPERT_MAX_ITERS + 1):
+        r = expert.train()["episode_reward_mean"]
+        if np.isfinite(r):
+            best = max(best, r)
+        if best >= BC_EXPERT_STOP:
+            break
+    if best < BC_EXPERT_FLOOR:
+        raise AssertionError(f"[offline] the PPO expert reached {best:.2f}")
+    expert_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as root:
+        path = expert_rollout(os.path.join(root, "expert"), expert.module)
+        bc = (BCConfig().environment("CartPole-v1").offline_data(input_=path)
+              .training(lr=1e-3).debugging(seed=SEED).build())
+        bc_run = offline_run(bc, BC_ITERS, "BC")
+        path = scripted_rollout(os.path.join(root, "mix"), MARWIL_FRAC_RANDOM)
+        cfg = (MARWILConfig().environment("CartPole-v1")
+               .offline_data(input_=path).training(lr=1e-3)
+               .debugging(seed=SEED))
+        cfg.beta = 2.0
+        marwil_run = offline_run(cfg.build(), MARWIL_ITERS, "MARWIL")
+    bc_loss = bc_run["metrics"]["bc_loss"]
+    if not (bc_loss < BC_LOSS_BOUND and bc_run["score"] >= BC_SCORE_FLOOR):
+        raise AssertionError(f"[offline] BC: loss {bc_loss:.4f}, score "
+                             f"{bc_run['score']:.2f}")
+    m = marwil_run["metrics"]
+    if not (marwil_run["score"] >= MARWIL_SCORE_FLOOR
+            and m["ma_adv_norm"] > 0):
+        raise AssertionError(f"[offline] MARWIL: score "
+                             f"{marwil_run['score']:.2f}, {m}")
+    note("offline", expert_iters=expert_iters, expert_best=best,
+         expert_s=expert_s, bc_loss=bc_loss, bc_score=bc_run["score"],
+         bc_loss_met_at=bc_run["first_met"], bc_iter_ms=bc_run["iter_ms"],
+         marwil_score=marwil_run["score"],
+         marwil_iter_ms=marwil_run["iter_ms"],
+         pass_launch_calls=bc_run["prof"]["eager"]["launch_calls"],
+         graph_launch_calls=bc_run["prof"]["graph"]["launch_calls"])
+    for tag, run, gate in (
+            ("BC", bc_run, f"bc_loss {bc_loss:.4f} < {BC_LOSS_BOUND} "
+             f"(first below it at iteration {bc_run['first_met']}), greedy "
+             f"score {bc_run['score']:.2f} >= {BC_SCORE_FLOOR} after "
+             f"{BC_ITERS} iterations; expert PPO best {best:.2f} in "
+             f"{expert_iters} iterations ({expert_s:.1f} s)"),
+            ("MARWIL", marwil_run, f"greedy score {marwil_run['score']:.2f}"
+             f" >= {MARWIL_SCORE_FLOOR} after {MARWIL_ITERS} iterations, "
+             f"marwil_loss {m['marwil_loss']:.4f}, ma_adv_norm "
+             f"{m['ma_adv_norm']:.3f}")):
+        log(f"[offline] {card} | {tag} CartPole-v1, {run['updates']} "
+            f"minibatch updates an iteration, fp32, TF32 off: {gate}; "
+            f"{run['iter_ms']:.2f} ms an iteration (mean after the first), "
+            f"evaluate {run['eval_s']:.2f} s; "
+            + launch_text(run["prof"], f"one pass of {run['updates']} "
+                          "updates"))
+    return no_flash("offline")
+
+
+def phase_es(card) -> dict:
+    """ES on CartPole-v1 at tests/test_algo_families.py's configuration:
+    the gate, ms a generation, one generation eager and from its graph."""
+    zero_launches()
+    algo = (ESConfig().environment("CartPole-v1").training(**ES_TRAINING)
+            .debugging(seed=SEED).build())
+    on_card("es", [algo.flat, algo._eps, algo._init_core])
+    best, met_at, host_s = float("-inf"), None, []
+    for i in range(ES_MAX_ITERS):
+        m = algo.train()
+        host_s.append(m["time_this_iter_s"])
+        best = max(best, m["episode_reward_mean"])
+        if best >= ES_FLOOR:
+            met_at = i
+            break
+    if met_at is None:
+        raise AssertionError(f"[es] best {best:.2f} < {ES_FLOOR} within "
+                             f"{ES_MAX_ITERS}")
+    prof = eager_and_graphed(algo._calls, algo.train)
+    ms = float(np.mean(host_s[1:] or host_s)) * 1e3
+    note("es", met_at=met_at, best=best, gen_ms=ms,
+         env_steps_per_s=algo._steps_per_iter / ms * 1e3,
+         eager_launch_calls=prof["eager"]["launch_calls"],
+         graph_launch_calls=prof["graph"]["launch_calls"])
+    log(f"[es] {card} | ES CartPole-v1 population "
+        f"{ES_TRAINING['population_size']} x {ES_TRAINING['episode_length']}"
+        f" steps, fp32, TF32 off: best episode_reward_mean {best:.2f} at "
+        f"generation {met_at}; {ms:.2f} ms a generation (mean after the "
+        f"first), {algo._steps_per_iter / ms * 1e3:.0f} env-steps/s; "
+        + launch_text(prof, "one generation"))
+    return no_flash("es")
+
+
+def phase_bandit(card) -> dict:
+    """LinUCB and LinTS on LinearBandit-v0: the regret gate, ms an
+    iteration, one iteration's rounds eager and from its graph."""
+    zero_launches()
+    parts = []
+    for cls, name, seed in BANDITS:
+        algo = cls().debugging(seed=seed).build()
+        st = algo._anakin_state
+        on_card("bandit", [st.A_inv, st.b, algo._xs])
+        runs = [algo.train() for _ in range(BANDIT_ITERS)]
+        first, last = runs[0]["regret_this_iter"], runs[-1][
+            "regret_this_iter"]
+        if not last < BANDIT_REGRET_RATIO * max(first, 1e-9):
+            raise AssertionError(f"[bandit] {name}: regret {last:.4f} "
+                                 f"against the first {first:.4f}")
+        prof = eager_and_graphed(algo._calls, algo.train)
+        ms = float(np.mean([m["time_this_iter_s"] for m in runs[1:]])) * 1e3
+        note("bandit", **{f"{name} regret_ratio": last / first,
+                          f"{name} iter_ms": ms,
+                          f"{name} eager_launch_calls":
+                              prof["eager"]["launch_calls"]})
+        parts.append(
+            f"{name} (seed {seed}): regret {first:.3f} in the first "
+            f"iteration, {last:.3f} in the {BANDIT_ITERS}th "
+            f"({last / first:.3f}x < {BANDIT_REGRET_RATIO}x), mean reward "
+            f"{runs[-1]['episode_reward_mean']:.3f}; {ms:.2f} ms an "
+            f"iteration of {algo.config.rounds_per_iter} rounds; "
+            + launch_text(prof, "one iteration"))
+    log(f"[bandit] {card} | fp32, TF32 off: " + "; ".join(parts))
+    return no_flash("bandit")
+
+
+def replay_gate(algo, tag, floor, max_iters, extra=None) -> dict:
+    """The JAX tests' gate for the replay-family step (best reward >=
+    ``floor`` within ``max_iters``), each iteration split by CUDA events
+    into its rollout and its updates; ``extra(metrics)`` sees every
+    iteration's metrics."""
+    best, met_at, rows, host_s = float("-inf"), None, [], []
+    for i in range(max_iters):
+        m, split = marked_iteration(algo, OFFPOLICY_PHASES)
+        if np.isfinite(m["episode_reward_mean"]):
+            best = max(best, m["episode_reward_mean"])
+        if extra is not None:
+            extra(m)
+        if m["replay_size"] >= algo.config.learning_starts:
+            if not np.isfinite(m["total_loss"]):
+                raise AssertionError(f"[{tag}] iteration {i}: {m}")
+            rows.append(split)
+            host_s.append(m["time_this_iter_s"])
+        if best >= floor:
+            met_at = i
+            break
+    if met_at is None:
+        raise AssertionError(f"[{tag}] best {best:.2f} < {floor} within "
+                             f"{max_iters}")
+    return {"met_at": met_at, "best": best, "metrics": m,
+            "iter_ms": float(np.mean(host_s)) * 1e3,
+            "rollout_ms": float(np.mean([r["rollout"] for r in rows])),
+            "update_ms": float(np.mean([r["update"] for r in rows]))}
+
+
+def replay_update_profile(updates, size, generator) -> dict:
+    return eager_and_graphed(updates, lambda: updates.update(size,
+                                                             generator))
+
+
+def phase_dynaq(card) -> dict:
+    """Dyna-Q on CartPole-v1 at tests/test_algo_families.py's
+    configuration: the gate and the model's falling loss, ms an iteration
+    by part, one Q update and one model update eager and graphed."""
+    zero_launches()
+    algo = (DynaQConfig().environment("CartPole-v1").anakin(**DYNAQ_ANAKIN)
+            .training(**DYNAQ_TRAINING).debugging(seed=SEED).build())
+    st = algo._anakin_state
+    on_card("dynaq", [*algo.module.parameters(), st.replay.obs])
+    model_losses = []
+    gate = replay_gate(algo, "dynaq", DYNAQ_FLOOR, DYNAQ_MAX_ITERS,
+                       lambda m: model_losses.append(m["model_loss"]))
+    if not model_losses[-1] < model_losses[0]:
+        raise AssertionError(f"[dynaq] model loss {model_losses[0]:.4f} -> "
+                             f"{model_losses[-1]:.4f}")
+    st = algo._anakin_state
+    q = replay_update_profile(st.updates, st.replay.size, st.generator)
+    model = replay_update_profile(algo.learner.model_updates,
+                                  st.replay.size, st.generator)
+    note("dynaq", met_at=gate["met_at"], best=gate["best"],
+         iter_ms=gate["iter_ms"], rollout_ms=gate["rollout_ms"],
+         update_ms=gate["update_ms"], model_loss_first=model_losses[0],
+         model_loss_last=model_losses[-1],
+         q_eager_launch_calls=q["eager"]["launch_calls"],
+         model_eager_launch_calls=model["eager"]["launch_calls"])
+    log(f"[dynaq] {card} | Dyna-Q CartPole-v1 {DYNAQ_ANAKIN['num_envs']} "
+        f"envs x {DYNAQ_ANAKIN['unroll_length']} steps, "
+        f"{algo.config.model_updates_per_iter} model fits and "
+        f"{DYNAQ_TRAINING['num_updates_per_iter']} Q updates (128 real + "
+        f"128 imagined rows) an iteration, fp32, TF32 off: best "
+        f"episode_reward_mean {gate['best']:.2f} at iteration "
+        f"{gate['met_at']}, model loss {model_losses[0]:.4f} -> "
+        f"{model_losses[-1]:.4f}; {gate['iter_ms']:.2f} ms an iteration "
+        f"once updating (rollout {gate['rollout_ms']:.2f} ms, model fits "
+        f"and Q updates {gate['update_ms']:.2f} ms by CUDA events); "
+        + launch_text(q, "one Q update") + "; "
+        + launch_text(model, "one model fit"))
+    return no_flash("dynaq")
+
+
+def phase_qmix(card) -> dict:
+    """QMIX on CoordinationGame-v0 at tests/test_algo_families.py's
+    configuration: the gate, ms an iteration by part, one update eager
+    and graphed."""
+    zero_launches()
+    algo = QMixConfig().environment("CoordinationGame-v0").debugging(
+        seed=SEED).build()
+    st = algo._anakin_state
+    on_card("qmix", [*algo.module.parameters(), st.replay.obs])
+    gate = replay_gate(algo, "qmix", QMIX_FLOOR, QMIX_MAX_ITERS)
+    st = algo._anakin_state
+    prof = replay_update_profile(st.updates, st.replay.size, st.generator)
+    note("qmix", met_at=gate["met_at"], best=gate["best"],
+         iter_ms=gate["iter_ms"], rollout_ms=gate["rollout_ms"],
+         update_ms=gate["update_ms"],
+         eager_launch_calls=prof["eager"]["launch_calls"])
+    c = algo.config
+    log(f"[qmix] {card} | QMIX CoordinationGame-v0 {c.num_envs} games x "
+        f"{c.unroll_length} steps, {c.num_updates_per_iter} mixed TD "
+        f"updates of {c.qmix_batch_size} an iteration, fp32, TF32 off: "
+        f"best episode_reward_mean {gate['best']:.2f} at iteration "
+        f"{gate['met_at']}; {gate['iter_ms']:.2f} ms an iteration once "
+        f"updating (rollout {gate['rollout_ms']:.2f} ms, updates "
+        f"{gate['update_ms']:.2f} ms by CUDA events); "
+        + launch_text(prof, "one update"))
+    return no_flash("qmix")
+
+
+def phase_mappo(card) -> dict:
+    """MAPPO on CoordinationGame-v0 at tests/test_multi_agent.py's
+    configuration: the gate, ms an iteration by part, one minibatch
+    update profiled eager, one iteration eager and with its updates from
+    their CUDA graphs."""
+    zero_launches()
+    algo = (MAPPOConfig().environment("CoordinationGame-v0")
+            .anakin(**MAPPO_ANAKIN).training(**MAPPO_TRAINING)
+            .debugging(seed=SEED).build())
+    on_card("mappo", list(algo.module.parameters()))
+    best, met_at, rows = float("-inf"), None, []
+    for i in range(MAPPO_MAX_ITERS):
+        m, split = marked_iteration(algo, ("start", "rollout", "gae", "sgd"))
+        rows.append((m["time_this_iter_s"], split))
+        if not np.isfinite(m["total_loss"]):
+            raise AssertionError(f"[mappo] iteration {i}: {m}")
+        if np.isfinite(m["episode_reward_mean"]):
+            best = max(best, m["episode_reward_mean"])
+        if best >= MAPPO_FLOOR:
+            met_at = i
+            break
+    if met_at is None:
+        raise AssertionError(f"[mappo] best {best:.2f} < {MAPPO_FLOOR} "
+                             f"within {MAPPO_MAX_ITERS}")
+    st = algo._anakin_state
+    module, params = st.module, list(st.module.parameters())
+    G, T = MAPPO_ANAKIN["num_envs"], MAPPO_ANAKIN["unroll_length"]
+    mb = MAPPO_TRAINING["sgd_minibatch_size"]
+    obs = st.obs.reshape(G * 2, -1).repeat(mb // (G * 2), 1)
+    with torch.no_grad():
+        actions, logp, value = module.forward_exploration(obs, st.generator)
+    batch = {"obs": obs, "actions": actions, "action_logp": logp,
+             "advantages": torch.randn(mb, device=RL_DEVICE),
+             "value_targets": value}
+    from ray_tpu_torch.rllib.algorithms.ppo import ppo_loss
+
+    def one_update():
+        loss, _ = ppo_loss(module, batch, clip_param=0.2, vf_clip_param=10.0,
+                           vf_loss_coeff=0.5, entropy_coeff=0.01)
+        grads = rl_mesh.clip_by_global_norm(
+            torch.autograd.grad(loss, params), algo.config.grad_clip)
+        for p, g in zip(params, grads):
+            p.grad = g
+        st.optimizer.step()
+
+    prof = profile_device(one_update)
+    iteration = eager_and_graphed(algo._train_step.graphs, algo.train)
+    ms = float(np.mean([r[0] for r in rows[1:] or rows])) * 1e3
+    split = {k: float(np.mean([r[1][k] for r in rows[1:] or rows]))
+             for k in ("rollout", "gae", "sgd")}
+    updates = algo.config.num_sgd_iter * (G * T * 2 // mb)
+    note("mappo", met_at=met_at, best=best, iter_ms=ms,
+         rollout_ms=split["rollout"], sgd_ms=split["sgd"],
+         update_launch_calls=prof["launch_calls"],
+         iteration_launch_calls_eager=iteration["eager"]["launch_calls"],
+         iteration_launch_calls_graphed=iteration["graph"]["launch_calls"])
+    log(f"[mappo] {card} | MAPPO CoordinationGame-v0 {G} games x {T} steps"
+        f" x 2 agents folded, {updates} minibatch updates an iteration, "
+        f"fp32, TF32 off: best team return {best:.2f} at iteration "
+        f"{met_at}; {ms:.2f} ms an iteration (rollout "
+        f"{split['rollout']:.2f}, GAE {split['gae']:.2f}, SGD "
+        f"{split['sgd']:.2f} by CUDA events, mean after the first); one "
+        f"minibatch update: {prof['launch_calls']} launch calls, "
+        f"{prof['device_ms']:.3f} ms on the card of {prof['wall_ms']:.3f} "
+        f"ms eager; " + launch_text(iteration, f"one iteration ({updates} "
+                                    "updates)"))
+    return no_flash("mappo")
+
+
+def start_cli() -> dict:
+    """Starts ``python -m ray_tpu_torch.rllib.train -f <json>`` in a
+    process of its own on the card (no device in the file: CUDA by
+    default), with a checkpoint directory; it runs beside the phases that
+    follow until ``phase_cli`` collects it."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp()
+    path = os.path.join(tmp, "experiments.json")
+    with open(path, "w") as f:
+        json.dump(CLI_EXPERIMENT, f)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch.rllib.train", "-f", path,
+         "--checkpoint-dir", os.path.join(tmp, "ckpt")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return {"proc": proc, "tmp": tmp, "t0": time.perf_counter()}
+
+
+def phase_cli(card, cli) -> dict:
+    """The started CLI's exit code, its JSON result and its checkpoint."""
+    import shutil
+
+    proc = cli["proc"]
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - cli["t0"]
+    try:
+        if proc.returncode != 0:
+            raise AssertionError(f"[cli] exit {proc.returncode}: "
+                                 f"{stderr[-2000:]}")
+        out = json.loads(stdout.strip().splitlines()[-1])["linucb"]
+        ckpt = os.path.join(cli["tmp"], "ckpt", "linucb", "checkpoint.pkl")
+        if not (out["training_iteration"] == 2 and out["rounds"] == 512
+                and os.path.exists(ckpt)):
+            raise AssertionError(f"[cli] {out}")
+    finally:
+        shutil.rmtree(cli["tmp"], ignore_errors=True)
+    note("cli", since_start_s=seconds, regret=out["regret_this_iter"])
+    log(f"[cli] {card} | python -m ray_tpu_torch.rllib.train -f <json> "
+        f"(BanditLinUCB, 2 iterations, CUDA by default), run beside "
+        f"[offline] onwards: exit 0, {seconds:.1f} s after its start, "
+        f"regret {out['regret_this_iter']:.3f}, checkpoint written")
+    return {}
+
+
 def timed(tag, phase, *args):
     """Run one phase, log its seconds and keep them for its record line."""
     RECORD.setdefault(tag, {})
@@ -5189,6 +5750,18 @@ def main():
     for tag, phase in (("dqn", phase_dqn), ("sac", phase_sac),
                        ("td3", phase_td3)):
         rl[tag] = timed(tag, phase, card)["flash"]
+    # The train CLI's process runs beside the rest of RLlib's phases.
+    cli = start_cli()
+    try:
+        for tag, phase in (("offline", phase_offline), ("es", phase_es),
+                           ("bandit", phase_bandit), ("dynaq", phase_dynaq),
+                           ("qmix", phase_qmix), ("mappo", phase_mappo)):
+            rl[tag] = timed(tag, phase, card)["flash"]
+        timed("cli", phase_cli, card, cli)
+    finally:
+        if cli["proc"].poll() is None:
+            cli["proc"].kill()
+            cli["proc"].wait()
     note("done", s=time.perf_counter() - t0)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     by_path = {"fp32": {"flash_fwd": fp32_launches}, **serving, **rlhf,

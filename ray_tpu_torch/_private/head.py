@@ -2108,11 +2108,21 @@ class Head:
                         self._fail_task(spec,
                                         exc.RayTpuError("task cancelled"))
                         return
-            for q in [self.pending] + [r.queued for r in self.raylets.values()]:
-                for spec in list(q):
+            for spec in list(self.pending):
+                if spec.task_id == task_id:
+                    self.pending.remove(spec)
+                    self._fail_task(spec, exc.RayTpuError("task cancelled"))
+                    return
+            # Placed on a node and waiting there for a worker (one may be
+            # starting): pick_node reserved its resources, so give them
+            # back, or the node keeps them for good.
+            for raylet in self.raylets.values():
+                for spec in list(raylet.queued):
                     if spec.task_id == task_id:
-                        q.remove(spec)
+                        raylet.queued.remove(spec)
+                        self.scheduler.return_resources(raylet.node_id, spec)
                         self._fail_task(spec, exc.RayTpuError("task cancelled"))
+                        self._drain_pending()
                         return
             # Running normal tasks: find the worker currently executing it.
             for raylet in self.raylets.values():

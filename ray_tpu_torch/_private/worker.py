@@ -67,6 +67,16 @@ def _obs():
 # ---------------------------------------------------------------------------
 # Transports
 # ---------------------------------------------------------------------------
+def _reraise_reply_error(fut: Future) -> None:
+    """Raise the error a reply carried, when the future holds one.
+    ``concurrent.futures.TimeoutError`` is the builtin ``TimeoutError``, so
+    ``except FuturesTimeoutError`` also catches a reply's own
+    ``GetTimeoutError`` (a ``TimeoutError``); that is the head's answer, not
+    a lost reply, and must reach the caller as it is."""
+    if fut.done() and fut.exception() is not None:
+        raise fut.exception()
+
+
 class DirectTransport:
     """Driver-side transport: function calls straight into the Head."""
 
@@ -109,6 +119,7 @@ class DirectTransport:
             # cannot lose their reply); a given timeout is enforced.
             return fut.result(timeout=timeout)
         except FuturesTimeoutError:
+            _reraise_reply_error(fut)
             raise exc.RpcTimeoutError(
                 op=op, elapsed=_time.monotonic() - start, timeout=timeout)
 
@@ -158,7 +169,7 @@ class DirectTransport:
                 return fut.result(
                     timeout=max(0.001, deadline.bound(attempt_iv)))
             except FuturesTimeoutError:
-                pass
+                _reraise_reply_error(fut)
             if deadline.expired():
                 retry_mod.note("timeouts")
                 raise exc.RpcTimeoutError(op=op, elapsed=deadline.elapsed(),
@@ -346,7 +357,7 @@ class ConnTransport:
                     return fut.result(
                         timeout=max(0.001, deadline.bound(attempt_wait)))
                 except FuturesTimeoutError:
-                    pass
+                    _reraise_reply_error(fut)
                 if self._closed:
                     raise exc.RayTpuError("connection closed")
                 if deadline.expired():

@@ -59,6 +59,24 @@ head_dim, d]``, flattened to ``[in, out]`` and transposed.
 ``sac.TwinQ``: ``{"q1": {"params": ...}, "q2": ...}`` becomes ``q1``,
 ``q2``), the Dense kernels transposed.
 
+The rest of RLlib:
+
+- ``es_flat_from_jax``: ES's flat vector (``ravel_pytree`` of the flax
+  ``MLP``'s params: layers in sorted name order, each ``bias`` then its
+  ``kernel`` ``[in, out]`` row-major), or any ``[..., dim]`` rows of such
+  vectors (ES's noise), -> the port's order (``parameters_to_vector``:
+  each layer's ``[out, in]`` weight, then its bias).  The map is a
+  permutation of coordinates, so the elementwise ES update commutes with
+  it;
+- ``qmix_from_flax``: QMIX's ``{"agent": {"params"}, "mixer": {"w1",
+  "b1", "w2", "b2"}}`` -> ``QMixNet``'s ``agent.*`` and
+  ``mixer.hyper_{w1,b1,w2,b2}.*``;
+- ``dyna_q_from_flax``: Dyna-Q's Q network and dynamics model (two
+  ``{"params"}`` trees of a flax ``MLP``) -> the ``q.net.*`` and
+  ``model.net.*`` of ``DynaQLearner.checkpoint_state``;
+- BC's and MARWIL's module (MARWIL's value head is its ``vf_mlp``) is a
+  ``DiscreteActorCritic``: ``actor_critic_from_flax``.
+
 ``layerskip_draft`` builds the speculative-decoding draft of
 ``bench.py::bench_serving_spec`` (``:768-774``) from a target GPT-2: one
 layer, with copies of the target's ``wte``, ``wpe``, ``h.0`` and
@@ -304,6 +322,69 @@ def replay_family_from_flax(tree: Mapping[str, Any]
         raise KeyError(f"unknown replay-family tree {sorted(tree)}")
     out: Dict[str, torch.Tensor] = {}
     _rl_walk(heads, out, "", lambda *args: False, known=_REPLAY_MODULES)
+    return out
+
+
+def _es_layout(obs_dim: int, hiddens, num_actions: int):
+    widths = (obs_dim, *hiddens, num_actions)
+    names = [f"dense_{i}" for i in range(len(hiddens))] + ["out"]
+    return names, dict(zip(names, zip(widths, widths[1:])))
+
+
+def es_flat_from_jax(flat, obs_dim: int, hiddens, num_actions: int
+                     ) -> torch.Tensor:
+    """ES's flat vector(s) ``[..., dim]`` in ``ravel_pytree``'s order ->
+    the port's (see the module's docstring)."""
+    x = np.asarray(flat, np.float32)
+    lead = x.shape[:-1]
+    names, dims = _es_layout(obs_dim, hiddens, num_actions)
+    parts, off = {}, 0
+    for name in sorted(names):  # ravel_pytree's key order
+        a, b = dims[name]
+        parts[name, "bias"] = x[..., off:off + b]
+        off += b
+        parts[name, "kernel"] = x[..., off:off + a * b].reshape(lead + (a, b))
+        off += a * b
+    if off != x.shape[-1]:
+        raise ValueError(f"flat vector of {x.shape[-1]}, the MLP has {off}")
+    out = []
+    for name in names:
+        a, b = dims[name]
+        out.append(np.swapaxes(parts[name, "kernel"], -1, -2).reshape(
+            lead + (a * b,)))
+        out.append(parts[name, "bias"])
+    return torch.from_numpy(np.ascontiguousarray(np.concatenate(out, -1)))
+
+
+def _params_of(tree: Mapping[str, Any], what: str) -> Mapping[str, Any]:
+    if set(tree) != {"params"}:
+        raise KeyError(f"{what}: expected params, got {sorted(tree)}")
+    return tree["params"]
+
+
+def qmix_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """QMIX's flax params -> ``QMixNet`` state_dict."""
+    if set(tree) != {"agent", "mixer"}:
+        raise KeyError(f"unknown QMIX tree {sorted(tree)}")
+    mixer = tree["mixer"]
+    if set(mixer) != {"w1", "b1", "w2", "b2"}:
+        raise KeyError(f"unknown QMIX mixer {sorted(mixer)}")
+    heads = {"agent": _params_of(tree["agent"], "agent"),
+             "mixer": {f"hyper_{k}": _params_of(v, f"mixer/{k}")
+                       for k, v in mixer.items()}}
+    out: Dict[str, torch.Tensor] = {}
+    _rl_walk(heads, out, "", lambda *args: False)
+    return out
+
+
+def dyna_q_from_flax(q_tree: Mapping[str, Any], model_tree: Mapping[str, Any]
+                     ) -> Dict[str, torch.Tensor]:
+    """Dyna-Q's flax Q network and dynamics model -> the state of
+    ``DynaQLearner.checkpoint_state``."""
+    out: Dict[str, torch.Tensor] = {}
+    for prefix, tree in (("q", q_tree), ("model", model_tree)):
+        _rl_walk({"net": _params_of(tree, prefix)}, out, prefix,
+                 lambda *args: False)
     return out
 
 

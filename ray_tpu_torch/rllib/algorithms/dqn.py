@@ -51,6 +51,10 @@ from ray_tpu_torch.rllib.execution.replay_plane import (  # noqa: F401
     run_actor_replay_iter,
 )
 from ray_tpu_torch.rllib.utils import mesh as mesh_util
+from ray_tpu_torch.rllib.utils.cuda_graphs import (
+    CapturedCalls,
+    capturable_adam,
+)
 
 Metrics = Dict[str, torch.Tensor]
 REPLAY_COLS = ("obs", "actions", "rewards", "next_obs", "dones")
@@ -120,22 +124,24 @@ class ReplayState:
         return self.actions.shape[0]
 
 
-def make_replay_state(buffer_size: int, n_insert: int, obs_dim: int,
+def make_replay_state(buffer_size: int, n_insert: int, obs_dim,
                       action_shape: Tuple[int, ...] = (),
                       action_dtype=torch.int64, device=None) -> ReplayState:
     """Device replay ring sized to a multiple of the per-iter insert so
     wrap inserts stay slice-aligned (an insert never straddles the end).
-    Shared by the replay-family algorithms (DQN, SAC, TD3)."""
+    Shared by the replay-family algorithms (DQN, SAC, TD3, Dyna-Q, and
+    QMIX, whose ``obs_dim`` is the shape ``(agents, obs_dim)``)."""
     cap = max(buffer_size, n_insert)
     cap = ((cap + n_insert - 1) // n_insert) * n_insert
+    obs_shape = (obs_dim,) if isinstance(obs_dim, int) else tuple(obs_dim)
 
     def zeros(shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
     return ReplayState(
-        obs=zeros((cap, obs_dim)),
+        obs=zeros((cap,) + obs_shape),
         actions=zeros((cap,) + tuple(action_shape), action_dtype),
-        rewards=zeros((cap,)), next_obs=zeros((cap, obs_dim)),
+        rewards=zeros((cap,)), next_obs=zeros((cap,) + obs_shape),
         dones=zeros((cap,)))
 
 
@@ -242,7 +248,9 @@ def stack_means(metrics_list) -> Metrics:
 def make_anakin_offpolicy(config: AlgorithmConfig, device, env, learner,
                           act_fn: Callable, batch_size: int,
                           action_shape=(), action_dtype=torch.int64,
-                          loss_names=()):
+                          loss_names=(), obs_shape=None,
+                          before_updates: Optional[
+                              Callable[[OffPolicyState], Metrics]] = None):
     """The Anakin step every replay-family algorithm runs: the envs reset
     from a generator on ``device`` seeded with ``config.seed``, a ring of
     ``buffer_size`` rounded up to a multiple of ``num_envs *
@@ -250,10 +258,14 @@ def make_anakin_offpolicy(config: AlgorithmConfig, device, env, learner,
     ``act_fn`` into the ring, then, once the ring holds
     ``learning_starts`` transitions, runs ``num_updates_per_iter`` updates
     on uniform draws of ``batch_size`` rows (``AnakinUpdates``: on CUDA
-    each update a replayed CUDA graph).  ``on_phase`` gets
-    "start", "rollout" and "update".  Returns ``(state, step(state, on_phase=None) -> (state,
-    metrics), env steps an iteration)``; before ``learning_starts`` the
-    metrics ``loss_names`` read NaN."""
+    each update a replayed CUDA graph).  ``before_updates(state)``, when
+    given, runs after each rollout, whatever the ring's size, and its
+    metrics join the step's (Dyna-Q fits its model there).  The ring's
+    rows have the shape ``obs_shape`` (``env.obs_dim`` by default).
+    ``on_phase`` gets "start", "rollout" and "update".  Returns ``(state,
+    step(state, on_phase=None) -> (state, metrics), env steps an
+    iteration)``; before ``learning_starts`` the metrics ``loss_names``
+    read NaN."""
     N, T = config.num_envs, config.unroll_length
     mesh_util.setup_data_mesh(config, N)
     generator = torch.Generator(device=device).manual_seed(config.seed)
@@ -261,8 +273,9 @@ def make_anakin_offpolicy(config: AlgorithmConfig, device, env, learner,
     zero = torch.zeros((), device=device)
     state = OffPolicyState(
         learner, env_states, obs, generator,
-        make_replay_state(config.buffer_size, N * T, env.obs_dim,
-                          action_shape, action_dtype, device),
+        make_replay_state(config.buffer_size, N * T,
+                          obs_shape or env.obs_dim, action_shape,
+                          action_dtype, device),
         torch.zeros(N, device=device), zero, zero.clone())
     state.updates = AnakinUpdates(learner, state.replay, batch_size)
 
@@ -274,6 +287,7 @@ def make_anakin_offpolicy(config: AlgorithmConfig, device, env, learner,
         state = offpolicy_rollout(env, state, T, act_fn)
         mark("rollout")
         replay = state.replay
+        extra = before_updates(state) if before_updates else {}
         if replay.size >= config.learning_starts:
             metrics = stack_means([
                 state.updates.update(replay.size, state.generator)
@@ -281,6 +295,7 @@ def make_anakin_offpolicy(config: AlgorithmConfig, device, env, learner,
         else:
             # Before learning_starts: collect only.
             metrics = {k: float("nan") for k in loss_names}
+        metrics.update(extra)
         mark("update")
         metrics.update({"replay_size": replay.size,
                         "episode_return_sum": state.done_return_sum,
@@ -313,9 +328,7 @@ class ReplayLearner:
         c = self.config
         update_fn, optimizer = mesh_util.build_update_plan(
             c, c.lr, c.grad_clip, params)
-        if self.device.type == "cuda":
-            for group in optimizer.param_groups:
-                group["capturable"] = True
+        capturable_adam(optimizer, self.device)
         return update_fn, optimizer
 
     def _load_optimizer(self, optimizer, saved: Dict[str, Any]) -> None:
@@ -344,6 +357,14 @@ class ReplayLearner:
     def noise_shapes(self, batch_size: int):
         return ()
 
+    def draw_specs(self, batch_size: int):
+        """What an Anakin update draws besides its ring rows, in order:
+        ``(what, shape)``, ``what`` being "normal" (``torch.randn``),
+        "uniform" (``torch.rand``), "rows" (indices into the ring's
+        filled rows) or an int ``high`` (``torch.randint(0, high)``).  By
+        default the normal noise of ``noise_shapes``."""
+        return [("normal", shape) for shape in self.noise_shapes(batch_size)]
+
     def step_kind(self):
         return None
 
@@ -364,34 +385,28 @@ class ReplayLearner:
         return out
 
 
-class AnakinUpdates:
+class AnakinUpdates(CapturedCalls):
     """The Anakin step's updates.  Each update draws its ring indices and
-    its noise from the step's generator into static tensors, then runs
-    ``device_update`` over them.  On the CPU it runs eagerly.  On CUDA
-    (``use_graphs``) it replays a CUDA graph of ``device_update``: one
-    launch where the eager update makes hundreds, each costing the host
-    more than the card's work.  There each variant (``step_kind``) runs
-    ``WARMUP`` updates eagerly on a side stream (lazy initialisations
-    must not happen in a capture), is captured at the next, and replayed
-    from then on; each variant keeps its own memory pool (TD3's two
-    replay in any order).  The ring's tensors and the learner's never
-    move (a checkpoint is loaded into them in place), so the graphs read
-    and write their current values."""
-
-    WARMUP = 3
+    what ``learner.draw_specs`` asks for from the step's generator into
+    static tensors, then runs ``device_update`` over them.  On the CPU it
+    runs eagerly.  On CUDA it replays a CUDA graph of ``device_update``
+    (``CapturedCalls``, a graph a ``step_kind``: TD3's two replay in any
+    order): one launch where the eager update makes hundreds, each costing
+    the host more than the card's work.  The ring's tensors and the
+    learner's never move (a checkpoint is loaded into them in place), so
+    the graphs read and write their current values."""
 
     def __init__(self, learner: ReplayLearner, replay: ReplayState,
                  batch_size: int):
         device = learner.device
+        super().__init__(device)
         self.learner, self.replay = learner, replay
         self.idx = torch.zeros(batch_size, dtype=torch.int64, device=device)
-        self.noise = [torch.zeros(shape, device=device)
-                      for shape in learner.noise_shapes(batch_size)]
-        self.use_graphs = device.type == "cuda"
-        self.graphs: Dict[Any, torch.cuda.CUDAGraph] = {}
-        self.outs: Dict[Any, Metrics] = {}
-        self.warm: Dict[Any, int] = {}
-        self.replays = 0
+        self.specs = list(learner.draw_specs(batch_size))
+        self.noise = [torch.zeros(shape, device=device,
+                                  dtype=torch.float32 if kind in (
+                                      "normal", "uniform") else torch.int64)
+                      for kind, shape in self.specs]
 
     def _update(self, kind) -> Metrics:
         return self.learner.device_update(
@@ -400,31 +415,19 @@ class AnakinUpdates:
     def update(self, size: int, generator: torch.Generator) -> Metrics:
         torch.randint(0, size, self.idx.shape, generator=generator,
                       device=self.idx.device, out=self.idx)
-        for buf in self.noise:
-            torch.randn(buf.shape, generator=generator, device=buf.device,
-                        out=buf)
+        for (what, shape), buf in zip(self.specs, self.noise):
+            if what == "normal":
+                torch.randn(shape, generator=generator, device=buf.device,
+                            out=buf)
+            elif what == "uniform":
+                torch.rand(shape, generator=generator, device=buf.device,
+                           out=buf)
+            else:  # "rows" of the ring's filled part, or [0, what)
+                torch.randint(0, size if what == "rows" else what, shape,
+                              generator=generator, device=buf.device,
+                              out=buf)
         kind = self.learner.step_kind()
-        if not self.use_graphs:
-            out = self._update(kind)
-        elif kind in self.graphs:
-            self.graphs[kind].replay()
-            self.replays += 1
-            out = self.outs[kind]
-        elif self.warm.get(kind, 0) < self.WARMUP:
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                out = self._update(kind)
-            torch.cuda.synchronize()
-            self.warm[kind] = self.warm.get(kind, 0) + 1
-        else:
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self.outs[kind] = self._update(kind)
-            self.graphs[kind] = graph
-            graph.replay()
-            self.replays += 1
-            out = self.outs[kind]
+        out = self.run(lambda: self._update(kind), kind)
         self.learner.after_update(kind)
         # A graph's outputs are overwritten by its next replay.
         return {k: v.clone() for k, v in out.items()}

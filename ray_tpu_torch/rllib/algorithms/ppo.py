@@ -6,7 +6,10 @@ and one train step runs the rollout of T steps, GAE, advantage
 normalisation and the minibatch SGD epochs there; the ``[T, N]``
 trajectory never leaves the device, and an iteration reads the host once,
 for its metrics.  The JAX package jits the whole step into one program;
-the port runs it eagerly, one launch per operation.
+the port runs the rollout eagerly, one launch per operation, and on CUDA
+replays each minibatch update from a CUDA graph (``MinibatchGraphs``,
+with Adam ``capturable``; the feedforward, recurrent, attention and
+multi-agent steps alike).
 
 The recurrent and attention policies (``use_lstm``, ``use_attention``)
 are built by ``ppo_rnn.py`` and ``ppo_attn.py``; IMPALA/APPO reuse the
@@ -45,6 +48,10 @@ from ray_tpu_torch.rllib.env.torch_envs import (
 )
 from ray_tpu_torch.rllib.evaluation.postprocessing import gae_torch
 from ray_tpu_torch.rllib.utils import mesh as mesh_util
+from ray_tpu_torch.rllib.utils.cuda_graphs import (
+    CapturedCalls,
+    capturable_adam,
+)
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -83,33 +90,71 @@ def ppo_loss(module: DiscreteActorCritic, batch, *, clip_param,
                          entropy_coeff=entropy_coeff)
 
 
+class MinibatchGraphs(CapturedCalls):
+    """``run_ppo_sgd``'s minibatch update replayed from a CUDA graph on
+    the card (``CapturedCalls``; eager on the CPU): each minibatch's
+    indices are copied into the static ``idx`` first.  Everything else
+    the update reads must stay in place across iterations, so an Anakin
+    step that hands this to ``run_ppo_sgd`` keeps its training batch in
+    static buffers and its optimizer ``capturable``."""
+
+    def __init__(self, device, mb_size: int):
+        super().__init__(device)
+        self.idx = torch.zeros(mb_size, dtype=torch.int64,
+                               device=torch.device(device))
+
+
+def anakin_graphs(state, mb_size: int) -> MinibatchGraphs:
+    """The minibatch graphs of an Anakin PPO step, its Adam made
+    ``capturable`` on CUDA.  Each step function carries its graphs as
+    ``train_step.graphs`` (a caller may set ``use_graphs`` off to time the
+    eager updates)."""
+    device = next(state.module.parameters()).device
+    capturable_adam(state.optimizer, device)
+    return MinibatchGraphs(device, mb_size)
+
+
 def run_ppo_sgd(params: Sequence[torch.nn.Parameter],
                 update_fn: Callable[[Sequence[torch.Tensor]], None],
                 loss_fn: Callable[[Dict[str, torch.Tensor]], Tuple[Any, Any]],
                 make_mb: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
                 total: int, mb_size: int, num_mb: int, num_sgd_iter: int,
-                permute: Callable[[int], torch.Tensor]
+                permute: Callable[[int], torch.Tensor],
+                graphs: Optional[MinibatchGraphs] = None
                 ) -> Tuple[torch.Tensor, Metrics]:
     """The permute -> minibatch -> update loop: each epoch takes a fresh
     ``permute(total)``, drops its remainder (``perm[: num_mb * mb_size]``)
     and, for each minibatch of indices, takes the gradient of
     ``loss_fn(make_mb(idx)) -> (loss, aux)`` with respect to ``params``
-    and hands it to ``update_fn``.  Returns each epoch's mean loss
+    and hands it to ``update_fn`` (through ``graphs``, when given: on
+    CUDA a replayed graph).  Returns each epoch's mean loss
     ``[num_sgd_iter]`` and mean aux metrics, on the device."""
+
+    def update(idx) -> Metrics:
+        loss, aux = loss_fn(make_mb(idx))
+        grads = torch.autograd.grad(loss, params)
+        update_fn(grads)
+        return {"loss": loss.detach(),
+                **{k: v.detach() for k, v in aux.items()}}
+
     losses, auxes = [], []
     for _ in range(num_sgd_iter):
         perm = permute(total)
         idxs = perm[: num_mb * mb_size].view(num_mb, mb_size)
         epoch = []
         for idx in idxs:
-            loss, aux = loss_fn(make_mb(idx))
-            grads = torch.autograd.grad(loss, params)
-            update_fn(grads)
-            epoch.append(torch.stack([loss.detach()]
-                                     + [v.detach() for v in aux.values()]))
+            if graphs is None:
+                out = update(idx)
+            else:
+                graphs.idx.copy_(idx)
+                out = graphs.run(lambda: update(graphs.idx))
+            # A graph's outputs are overwritten by its next replay: the
+            # stack copies them first.
+            epoch.append(torch.stack(list(out.values())))
+        names = list(out)[1:]
         means = torch.stack(epoch).mean(0)
         losses.append(means[0])
-        auxes.append(dict(zip(aux, means[1:])))
+        auxes.append(dict(zip(names, means[1:])))
     return torch.stack(losses), {k: torch.stack([a[k] for a in auxes])
                                  for k in auxes[0]}
 
@@ -233,6 +278,18 @@ def make_anakin_ppo(config: AlgorithmConfig, device: torch.device):
     mb_size = min(config.sgd_minibatch_size, batch_total)
     num_mb = batch_total // mb_size
     traj = trajectory_buffers(T, state.obs)
+    # The training batch in static buffers (``MinibatchGraphs``): the
+    # trajectory's views and the advantages and targets copied in.
+    adv_buf = torch.empty((T, N), device=device)
+    vtarg_buf = torch.empty((T, N), device=device)
+    flat = {
+        "obs": traj["obs"].view(batch_total, *obs_shape),
+        "actions": traj["actions"].view(batch_total),
+        "action_logp": traj["action_logp"].view(batch_total),
+        "advantages": adv_buf.view(batch_total),
+        "value_targets": vtarg_buf.view(batch_total),
+    }
+    graphs = anakin_graphs(state, mb_size)
     loss_fn = functools.partial(
         ppo_loss, module, clip_param=config.clip_param,
         vf_clip_param=config.vf_clip_param,
@@ -251,24 +308,19 @@ def make_anakin_ppo(config: AlgorithmConfig, device: torch.device):
             adv, vtarg = gae_torch(traj["rewards"], traj["values"],
                                    traj["dones"], last_value,
                                    config.gamma, config.lambda_)
-            adv = mesh_util.normalize_global(adv)
-        flat = {
-            "obs": traj["obs"].view(batch_total, *obs_shape),
-            "actions": traj["actions"].view(batch_total),
-            "action_logp": traj["action_logp"].view(batch_total),
-            "advantages": adv.view(batch_total),
-            "value_targets": vtarg.view(batch_total),
-        }
+            adv_buf.copy_(mesh_util.normalize_global(adv))
+            vtarg_buf.copy_(vtarg)
         mark("gae")
         losses, auxes = run_ppo_sgd(
             params, update_fn, loss_fn,
             lambda idx: {k: v[idx] for k, v in flat.items()},
             batch_total, mb_size, num_mb, config.num_sgd_iter,
             lambda n: torch.randperm(n, generator=state.generator,
-                                     device=device))
+                                     device=device), graphs)
         mark("sgd")
         return state, sgd_metrics(state, losses, auxes)
 
+    train_step.graphs = graphs
     return state, train_step, batch_total
 
 

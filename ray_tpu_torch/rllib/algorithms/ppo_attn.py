@@ -30,6 +30,7 @@ from ray_tpu_torch.rllib.algorithms.ppo import (
     AnakinState,
     init_anakin,
     ppo_surrogate,
+    anakin_graphs,
     run_ppo_sgd,
     sgd_metrics,
     trajectory_buffers,
@@ -250,6 +251,16 @@ def make_anakin_ppo_attn(config: AlgorithmConfig, device: torch.device):
     del traj["obs"]  # the windows hold the observations
     traj["hist"] = torch.empty((T,) + tuple(hist.shape), device=device)
     traj["valid"] = torch.empty((T, N, K), dtype=torch.bool, device=device)
+    # The training batch in static buffers (``MinibatchGraphs``).
+    adv_buf = torch.empty((T, N), device=device)
+    vtarg_buf = torch.empty((T, N), device=device)
+    flat = {"hist": traj["hist"].flatten(0, 1),
+            "valid": traj["valid"].flatten(0, 1),
+            "actions": traj["actions"].view(batch_total),
+            "action_logp": traj["action_logp"].view(batch_total),
+            "advantages": adv_buf.view(batch_total),
+            "value_targets": vtarg_buf.view(batch_total)}
+    graphs = anakin_graphs(state, mb_size)
     surrogate = functools.partial(
         ppo_surrogate, clip_param=config.clip_param,
         vf_clip_param=config.vf_clip_param,
@@ -299,21 +310,17 @@ def make_anakin_ppo_attn(config: AlgorithmConfig, device: torch.device):
             adv, vtarg = gae_torch(traj["rewards"], traj["values"],
                                    traj["dones"], last_value, config.gamma,
                                    config.lambda_)
-            adv = mesh_util.normalize_global(adv)
-        flat = {"hist": traj["hist"].flatten(0, 1),
-                "valid": traj["valid"].flatten(0, 1),
-                "actions": traj["actions"].view(batch_total),
-                "action_logp": traj["action_logp"].view(batch_total),
-                "advantages": adv.view(batch_total),
-                "value_targets": vtarg.view(batch_total)}
+            adv_buf.copy_(mesh_util.normalize_global(adv))
+            vtarg_buf.copy_(vtarg)
         mark("gae")
         losses, auxes = run_ppo_sgd(
             params, update_fn, attn_ppo_loss,
             lambda idx: {k: v[idx] for k, v in flat.items()},
             batch_total, mb_size, num_mb, config.num_sgd_iter,
             lambda n: torch.randperm(n, generator=state.generator,
-                                     device=device))
+                                     device=device), graphs)
         mark("sgd")
         return state, sgd_metrics(state, losses, auxes)
 
+    train_step.graphs = graphs
     return state, train_step, batch_total

@@ -27,6 +27,7 @@ from ray_tpu_torch.rllib.algorithms.ppo import (
     AnakinState,
     init_anakin,
     ppo_surrogate,
+    anakin_graphs,
     run_ppo_sgd,
     sgd_metrics,
     trajectory_buffers,
@@ -203,6 +204,12 @@ def make_anakin_ppo_rnn(config: AlgorithmConfig, device: torch.device):
     params = list(module.parameters())
     traj = trajectory_buffers(T, state.obs)
     traj["resets"] = torch.empty((T, N), dtype=torch.bool, device=device)
+    # What the minibatches read, in static buffers (``MinibatchGraphs``):
+    # the carry at the unroll's first step, the advantages, the targets.
+    carry0 = zero_carry(N, size, device)
+    adv_buf = torch.empty((T, N), device=device)
+    vtarg_buf = torch.empty((T, N), device=device)
+    graphs = anakin_graphs(state, envs_per_mb)
     surrogate = functools.partial(
         ppo_surrogate, clip_param=config.clip_param,
         vf_clip_param=config.vf_clip_param,
@@ -244,7 +251,10 @@ def make_anakin_ppo_rnn(config: AlgorithmConfig, device: torch.device):
                    ) -> Tuple[RNNAnakinState, Dict[str, torch.Tensor]]:
         mark = on_phase or (lambda name: None)
         mark("start")
-        carry0 = state.carry  # the hidden state at the unroll's first step
+        with torch.no_grad():  # the hidden state at the unroll's first step
+            for buf, x in zip((b for sub in carry0 for b in sub),
+                              (x for sub in state.carry for x in sub)):
+                buf.copy_(x)
         state = rollout(state)
         mark("rollout")
         with torch.no_grad():
@@ -253,7 +263,8 @@ def make_anakin_ppo_rnn(config: AlgorithmConfig, device: torch.device):
             adv, vtarg = gae_torch(traj["rewards"], traj["values"],
                                    traj["dones"], last_value, config.gamma,
                                    config.lambda_)
-            adv = mesh_util.normalize_global(adv)
+            adv_buf.copy_(mesh_util.normalize_global(adv))
+            vtarg_buf.copy_(vtarg)
         mark("gae")
 
         def make_mb(env_idx):
@@ -264,15 +275,16 @@ def make_anakin_ppo_rnn(config: AlgorithmConfig, device: torch.device):
                     "resets": traj["resets"][:, env_idx],
                     "actions": traj["actions"][:, env_idx],
                     "action_logp": traj["action_logp"][:, env_idx],
-                    "advantages": adv[:, env_idx],
-                    "value_targets": vtarg[:, env_idx]}
+                    "advantages": adv_buf[:, env_idx],
+                    "value_targets": vtarg_buf[:, env_idx]}
 
         losses, auxes = run_ppo_sgd(
             params, update_fn, seq_ppo_loss, make_mb, N, envs_per_mb,
             num_mb, config.num_sgd_iter,
             lambda n: torch.randperm(n, generator=state.generator,
-                                     device=device))
+                                     device=device), graphs)
         mark("sgd")
         return state, sgd_metrics(state, losses, auxes)
 
+    train_step.graphs = graphs
     return state, train_step, N * T

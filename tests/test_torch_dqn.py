@@ -215,7 +215,7 @@ def test_dqn_config_registry():
     assert ALGORITHMS["DQN"] is DQNConfig
     assert isinstance(get_algorithm_config("DQN"), DQNConfig)
     with pytest.raises(ValueError, match="unknown algorithm"):
-        get_algorithm_config("QMIX")
+        get_algorithm_config("NoSuchAlgorithm")
 
 
 def test_anakin_epsilon_and_ring_fill_match_jax():

@@ -146,6 +146,67 @@ def test_wait_and_cancel(rt):
     assert rt.get(held, timeout=T) == 3
 
 
+@port_only
+def test_get_timeout_on_a_pending_task_raises_get_timeout_error(rt):
+    """The port's copy of test_core_basic.py::test_get_timeout: the head's
+    ``GetTimeoutError`` reaches the caller (the JAX package's copy turns it
+    into an ``RpcTimeoutError``), and it is both a ``RayTpuError`` and a
+    ``TimeoutError``, as the port's own deadline waits expect."""
+    @rt.remote
+    def never():
+        time.sleep(60)
+
+    ref = never.remote()
+    t0 = time.monotonic()
+    with pytest.raises(rt.exceptions.GetTimeoutError) as e:
+        rt.get(ref, timeout=0.5)
+    assert time.monotonic() - t0 < 10
+    assert isinstance(e.value, rt.exceptions.RayTpuError)
+    assert isinstance(e.value, TimeoutError)
+    # Cancelled, placed or running, the task gives its CPU back (one
+    # cancelled while its worker still started kept it in the JAX
+    # package's copy).
+    rt.cancel(ref)
+    deadline = time.monotonic() + T
+    while rt.available_resources().get("CPU", 0) < 4:
+        assert time.monotonic() < deadline
+        time.sleep(0.05)
+
+
+@port_only
+def test_cancel_a_running_task_after_wait(rt, tmp_path):
+    """A task that has started, and that ``wait`` then sees still
+    running, is cancelled: its ``get`` raises the cancellation at once,
+    and the cluster runs the next task."""
+    marker = str(tmp_path / "started")
+
+    @rt.remote
+    def slow(path):
+        with open(path, "w"):
+            pass
+        time.sleep(30)
+        return "slow"
+
+    ref = slow.remote(marker)
+    deadline = time.monotonic() + T
+    while not os.path.exists(marker):  # the task body runs
+        assert time.monotonic() < deadline
+        time.sleep(0.05)
+    ready, pending = rt.wait([ref], num_returns=1, timeout=0.5)
+    assert ready == [] and pending == [ref]
+    rt.cancel(ref)
+    t0 = time.monotonic()
+    with pytest.raises(Exception, match="cancelled") as e:
+        rt.get(ref, timeout=T)
+    assert _name(e) == "RayTpuError" and time.monotonic() - t0 < 10
+
+    @rt.remote
+    def one():
+        return 1
+
+    assert rt.get(one.remote(), timeout=T) == 1
+
+
 def test_put_many_and_get_many(rt):
     values = [i * np.ones(3000, np.float64) for i in range(5)] + ["s", 7]
     refs = rt.put_many(values)
