@@ -82,12 +82,26 @@ three main paths with random weights from a seed:
   world 2 and restored at world 1 here), ``ElasticMeshGroup`` at GPT-2
   small shrinking on a preemption notice (bit for bit
   ``reference_trajectory`` here) and ``DistributedLearnerGroup`` with
-  ``[ppo-actor]``'s learner;
+  ``[ppo-actor]``'s learner, then ``[layouts]``: two ranks at half the
+  card over gloo run GPT-2 tiny with MoE (4 experts, top-2, fp32) in the
+  ``data`` (DDP), ``expert`` (the expert-parallel MoE's all-to-alls) and
+  ``sequence`` (``ring_attention``) layouts, each loss and gradient held
+  to one rank's step here, and ring and Ulysses attention against full
+  attention on the JAX tests' shapes;
+- ``[resnet]`` (after ``[zero]`` in the shared cluster): ResNet-50 with
+  the CIFAR stem through ``TorchTrainer`` (one worker,
+  ``train_loop_per_worker``, one epoch of 8192 seeded images of
+  CIFAR-10's shape through the Data ingest at B=256), then
+  ``BatchPredictor`` with ``TorchPredictor`` over 2048 held-out images
+  from the fit's checkpoint: held-out accuracy >= 0.5;
 - training: GPT-2 small steps (bf16 compute over fp32 parameters,
   ``adamw(3e-4)``, ``make_train_step``) at the JAX bench's two shapes,
   B=16 x S=1024 and B=4 x S=4096, every layer running the forward with
-  the LSE and both backward kernels; then one fp32 step of a 2-layer
-  GPT-2 small on the card against the same step on the CPU;
+  the LSE and both backward kernels; ``[moe-train]``, the same step at
+  B=8 x S=1024 with ``MoEConfig()``'s 8 experts (top-2) in every block
+  (12 launches of each kernel a step, a falling loss); then one fp32
+  step of a 2-layer GPT-2 small, and of its MoE cut, on the card against
+  the same step on the CPU;
 - the Llama family at ``llama_1b``'s shape (the TinyLlama-1.1B config:
   22 layers, width 2048, 32 query heads over 4 K/V heads):
   ``[llama-serve]`` serves it in bf16 through ``LLMServer`` (8 requests,
@@ -175,11 +189,25 @@ import ray_tpu_torch
 from ray_tpu_torch.models import (
     Llama,
     LlamaConfig,
+    ResNet,
+    ResNetConfig,
     gpt2_loss_fn,
     llama_loss_fn,
+    resnet_loss_fn,
 )
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as attn
+from ray_tpu_torch.ops.moe import (
+    MoEConfig,
+    make_expert_parallel_moe,
+    moe_apply,
+    moe_apply_token_sharded,
+)
+from ray_tpu_torch.parallel import MeshSpec, make_mesh
+from ray_tpu_torch.parallel.ring_attention import (
+    ring_attention,
+    ulysses_attention,
+)
 from ray_tpu_torch.rllib import (
     APPOConfig,
     BanditLinTSConfig,
@@ -220,8 +248,14 @@ from ray_tpu_torch.serve import (
 )
 from ray_tpu_torch.serve.sampling import draw_seed
 from ray_tpu_torch import data as rdata
-from ray_tpu_torch.air import ScalingConfig
-from ray_tpu_torch.train import TorchTrainer, adamw, make_train_step
+from ray_tpu_torch.air import Checkpoint, ScalingConfig
+from ray_tpu_torch.train import (
+    BatchPredictor,
+    TorchPredictor,
+    TorchTrainer,
+    adamw,
+    make_train_step,
+)
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s and
 # operations/s by input type.  The bound of a call is the larger of its
@@ -3551,7 +3585,7 @@ def phase_rlhf(card) -> dict:
 
 
 def train_steps(b, length, iters, seed=SEED, batches=None, zero=None,
-                groups=None) -> dict:
+                groups=None, config_kw=None) -> dict:
     """GPT-2 small steps at B x S: bf16 compute over fp32 parameters,
     adamw(3e-4), on the ids ``batches`` yields (tensors on the card), or
     the same seeded ids every step (bench.py's synthetic branch).  One
@@ -3562,10 +3596,12 @@ def train_steps(b, length, iters, seed=SEED, batches=None, zero=None,
     worker on the dataset shard's batches, ``[zero]`` there too with
     ``zero`` (``zero_train_step``'s settings: the step through
     ``compile_zero_step``) and ``groups`` (one more step, on the next
-    batch, profiled by those kernel groups)."""
+    batch, profiled by those kernel groups); ``[moe-train]`` with
+    ``config_kw`` (more GPT2Config fields: the MoE)."""
     t0 = time.perf_counter()
     model = build_model("gpt2", {"tiny": False,
-                                 "max_position_embeddings": max(1024, length)},
+                                 "max_position_embeddings": max(1024, length),
+                                 **(config_kw or {})},
                         seed=seed)
     cfg = model.config
     info = None
@@ -5651,6 +5687,469 @@ def phase_cli(card, cli) -> dict:
     return {}
 
 
+# ---------------------------------------------------------------------------
+# Queue 1 item 8's models: the MoE GPT-2 ([moe-train]), ResNet-50 on
+# CIFAR-10's shape through TorchTrainer and BatchPredictor ([resnet]), and
+# the data / expert / sequence layouts over two ranks ([layouts])
+# ---------------------------------------------------------------------------
+# [moe-train]: GPT-2 small's width with MoEConfig()'s experts (8, top-2,
+# capacity factor 1.25) in every block, [train]'s step (bf16 over fp32
+# parameters, adamw(3e-4)) at B=8 S=1024, a warm-up step and 10 timed;
+# the router, the dispatch and the expert FFN run in fp32 (ln_2's output).
+# Then [train-fp32]'s card-against-CPU step on its 2-layer fp32 cut.
+MOE_TRAIN = (8, 1024, 10)  # (B, S, timed steps)
+MOE_CONFIG = MoEConfig()
+# Device time of one more MoE step by kernel name (first match): the
+# fp32 matmuls (the expert FFN and the router) apart from the bf16 ones.
+MOE_STEP_GROUPS = (("flash", ("flash_",)),
+                   ("fp32 matmul", ("sgemm", "f32f32_f32f32", "gemm_f32",
+                                    "nvjet_sss")),
+                   ("bf16 matmul", ("gemm", "xmma", "cutlass", "nvjet",
+                                    "sm90_")),
+                   ("index/sort", ("index", "gather", "scatter", "sort",
+                                   "cumsum", "Scan", "radix")),
+                   ("optimizer", ("multi_tensor_apply",)),
+                   ("copy/cast", ("Memcpy", "Memset", "CatArrayBatchedCopy",
+                                  "copy_kernel", "direct_copy")),
+                   ("elementwise", ("elementwise", "vectorized", "reduce",
+                                    "softmax", "norm", "Norm", "nll",
+                                    "cross_entropy", "gelu")))
+
+
+def moe_flops_per_token(run, length) -> float:
+    """Training FLOPs a token on the parameters a token uses: every
+    parameter but the experts, top_k of each layer's E experts, and the
+    attention scores (bench.py's 6 N + 12 layers width S)."""
+    e, k = MOE_CONFIG.num_experts, MOE_CONFIG.top_k
+    d, layers = run["hidden_size"], run["num_layers"]
+    experts = layers * e * 2 * d * 4 * d
+    active = run["n_params"] - experts + experts * k // e
+    return 6 * active + 12 * layers * d * length
+
+
+def phase_moe_train(card) -> dict:
+    """The MoE GPT-2 small step (``train_steps`` with ``MOE_CONFIG``):
+    [train]'s checks (12 launches of each kernel a step, the first loss
+    near ln 50257, a falling loss), then its 2-layer fp32 cut on the card
+    against the CPU at [train-fp32]'s bounds.  Returns the launches."""
+    b, length, iters = MOE_TRAIN
+    run = train_steps(b, length, iters, config_kw={"moe": MOE_CONFIG},
+                      groups=MOE_STEP_GROUPS)
+    check_train("[moe-train]", run, b, length, iters)
+    tokens_per_s = iters * b * length / run["seconds"]
+    flops = moe_flops_per_token(run, length)
+    mfu = tokens_per_s * flops / PEAK_OPS_PER_S[torch.bfloat16]
+    per_step = {name: run["num_layers"] for name in attn.LAUNCHES}
+    note("moe-train", ms_per_step=run["seconds"] / iters * 1e3,
+         tokens_per_s=tokens_per_s, active_mfu=mfu,
+         peak_gib=run["peak_gib"], build_s=run["build_s"],
+         warm_s=run["warm_s"])
+    log(f"[moe-train] {card} | GPT-2 small width, MoE in every block "
+        f"({MOE_CONFIG.num_experts} experts, top-{MOE_CONFIG.top_k}, "
+        f"capacity factor {MOE_CONFIG.capacity_factor}; fp32 router, "
+        f"dispatch and expert FFN), B={b} S={length} bf16/fp32-params "
+        f"adamw: {iters} steps in {run['seconds']:.3f} s = "
+        f"{run['seconds'] / iters * 1e3:.1f} ms/step, {tokens_per_s:.0f} "
+        f"tokens/s, MFU on the active parameters {mfu:.4f} "
+        f"(N={run['n_params']}, {flops / 1e9:.3f} active GFLOP/token, bf16 "
+        f"peak); loss {' '.join(f'{x:.4f}' for x in run['losses'])}; "
+        f"launches per step {per_step}; build {run['build_s']:.1f} s, "
+        f"warm-up step {run['warm_s']:.2f} s; peak memory "
+        f"{run['peak_gib']:.1f} GiB")
+    prof = run["profile"]
+    step_ms = run["seconds"] / iters * 1e3
+    note("moe-train", device_ms=prof["device_ms"],
+         **{f"{g}_ms": ms for g, ms in prof["groups"].items()})
+    log(f"[moe-train] {card} | one profiled step: device "
+        f"{prof['device_ms']:.1f} ms, {prof['device_ms'] / step_ms:.1%} of a"
+        f" timed step, {prof['device_ops']} device ops, "
+        f"{prof['launch_calls']} launch calls; by group (ms): "
+        + ", ".join(f"{g} {ms:.1f}" for g, ms in sorted(
+            prof["groups"].items(), key=lambda kv: -kv[1]))
+        + "; top: " + "; ".join(f"{name[:60]} x{n} {ms:.1f} ms"
+                                for name, (n, ms) in prof["top"]))
+    phase_train_fp32("moe-train-fp32", "gpt2",
+                     (("tiny", False), ("moe", MOE_CONFIG)))
+    return {"moe-train": run["launches"]}
+
+
+# [resnet]: ResNetConfig.resnet50_cifar() (bf16 convolutions, fp32 BN and
+# head) through TorchTrainer, one worker, train_loop_per_worker: one epoch
+# of RESNET_TRAIN images of CIFAR-10's shape at B=256 through the Data
+# ingest (from_numpy -> the worker's shard -> iter_device_batches), then
+# BatchPredictor with TorchPredictor over RESNET_HELD_OUT held-out images
+# from the fit's checkpoint.  No copy of CIFAR-10 is on either machine: an
+# image is its class's fixed template (N(0, 1) pixels from the seed) plus
+# N(0, 1) noise.  Gates: the first loss within RESNET_FIRST_SLACK of
+# ln 10, a falling loss, held-out accuracy >= RESNET_ACCURACY (chance is
+# 0.1), no flash launch.
+RESNET_TRAIN, RESNET_HELD_OUT, RESNET_BATCH = 8192, 2048, 256
+RESNET_LR = 1e-3
+RESNET_FIRST_SLACK = 0.5
+RESNET_ACCURACY = 0.5
+
+
+def resnet_images(n, seed) -> dict:
+    """``n`` images [n, 32, 32, 3] fp32 with their labels [n]."""
+    templates = np.random.default_rng(SEED).standard_normal(
+        (10, 32, 32, 3), dtype=np.float32)
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 10, n)
+    noise = rng.standard_normal((n, 32, 32, 3), dtype=np.float32)
+    return {"image": templates[labels] + noise, "label": labels}
+
+
+def resnet_model():
+    """ResNet-50 with the CIFAR stem, drawn from the seed on the CPU."""
+    return ResNet(ResNetConfig.resnet50_cifar(),
+                  torch.Generator().manual_seed(SEED))
+
+
+def resnet_loop(config):
+    """TorchTrainer's worker: one epoch of the dataset shard through
+    iter_device_batches, ``make_train_step`` over ``resnet_loss_fn``
+    (AdamW), the first step timed apart; reports the rates and the
+    model's state dict as the checkpoint."""
+    started = time.time()
+    from ray_tpu_torch.air import session
+
+    t0 = time.perf_counter()
+    model = resnet_model().to("cuda", memory_format=torch.channels_last)
+    step = make_train_step(model, adamw(model.parameters(), RESNET_LR),
+                           lambda m, batch: resnet_loss_fn(m, batch)[0])
+    build_s = time.perf_counter() - t0
+    stream = session.get_dataset_shard("train").iter_device_batches(
+        config["batch"])
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step(next(stream))]
+    first = losses[0].item()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    losses += [step(batch) for batch in stream]
+    losses[-1].item()
+    seconds = time.perf_counter() - t0
+    stream.close()
+    session.report({
+        "losses": [first] + torch.stack(losses[1:]).tolist(),
+        "seconds": seconds, "warm_s": warm_s, "build_s": build_s,
+        "steps": len(losses), "launches": dict(attn.LAUNCHES),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "started": started, "spawned": process_start(),
+        "jax": jax_modules()},
+        checkpoint=Checkpoint.from_state_dict(model.state_dict()))
+
+
+def phase_resnet(card) -> dict:
+    """ResNet-50 (CIFAR stem) fit through TorchTrainer, then batch
+    prediction over held-out images from its checkpoint.  Returns the
+    fit's flash launches (none)."""
+    b = RESNET_BATCH
+    train = resnet_images(RESNET_TRAIN, SEED + 7)
+    t_fit = time.time()
+    result = TorchTrainer(
+        resnet_loop, train_loop_config={"batch": b},
+        datasets={"train": rdata.from_numpy(train, parallelism=8)},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True)).fit()
+    fit_s = time.time() - t_fit
+    if result.error is not None:
+        raise AssertionError(f"[resnet] {result.error}")
+    m = result.metrics
+    losses, steps = m["losses"], m["steps"]
+    images_per_s = (steps - 1) * b / m["seconds"]
+    held = resnet_images(RESNET_HELD_OUT, SEED + 8)
+    t0 = time.time()
+    predictor = BatchPredictor.from_checkpoint(
+        result.checkpoint, TorchPredictor, model=resnet_model,
+        input_column="image")
+    out = predictor.predict(rdata.from_numpy(held, parallelism=4))
+    batches = list(out.iter_batches(batch_size=RESNET_HELD_OUT))
+    predict_s = time.time() - t0
+    logits = np.concatenate([x["predictions"] for x in batches])
+    labels = np.concatenate([x["label"] for x in batches])
+    accuracy = float((logits.argmax(-1) == labels).mean())
+    ln10 = float(np.log(10))
+    note("resnet", images_per_s=images_per_s,
+         ms_per_step=m["seconds"] / (steps - 1) * 1e3, accuracy=accuracy,
+         cold_s=m["started"] - t_fit, to_spawn_s=m["spawned"] - t_fit,
+         fit_s=fit_s, predict_s=predict_s, peak_gib=m["peak_gib"])
+    log(f"[resnet] {card} | ResNet-50 (CIFAR stem; bf16 convolutions, fp32 "
+        f"BN and head) through TorchTrainer, one worker: {steps} steps of "
+        f"B={b} on {RESNET_TRAIN} 32x32x3 images of 10 classes (template + "
+        f"N(0,1) noise) through from_numpy -> iter_device_batches, AdamW "
+        f"{RESNET_LR}: {steps - 1} steps after the first in "
+        f"{m['seconds']:.3f} s = {m['seconds'] / (steps - 1) * 1e3:.1f} "
+        f"ms/step, {images_per_s:.0f} images/s; first step "
+        f"{m['warm_s']:.2f} s, model build {m['build_s']:.2f} s; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (ln 10 = {ln10:.4f}); peak "
+        f"memory {m['peak_gib']:.1f} GiB; flash launches {m['launches']}; "
+        f"worker cold start (fit to loop) {m['started'] - t_fit:.2f} s, "
+        f"{m['spawned'] - t_fit:.2f} s of it to the worker process's "
+        f"start; fit {fit_s:.1f} s. BatchPredictor(TorchPredictor) over "
+        f"{RESNET_HELD_OUT} held-out images from the fit's checkpoint: "
+        f"accuracy {accuracy:.4f} (bound {RESNET_ACCURACY}, chance 0.1) in "
+        f"{predict_s:.1f} s")
+    if m["jax"] or any(m["launches"].values()):
+        raise AssertionError(f"[resnet] worker {m['jax']}, flash "
+                             f"{m['launches']}")
+    if not (np.all(np.isfinite(losses))
+            and abs(losses[0] - ln10) <= RESNET_FIRST_SLACK
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"[resnet] losses {losses}")
+    if not accuracy >= RESNET_ACCURACY:
+        raise AssertionError(f"[resnet] held-out accuracy {accuracy}")
+    return {"resnet": m["launches"]}
+
+
+# [layouts]: the counterpart of __graft_entry__.py's _dryrun_one_mesh over
+# each layout of two ranks: GPT-2 tiny with MoE (4 experts, top-2, fp32,
+# 4 heads) at batch max(4, world) x 128, the same weights and ids through
+# `data` = 2 (DDP; the MoE over the global tokens, as GSPMD runs it),
+# `expert` = 2 (DDP; make_expert_parallel_moe) and `sequence` = 2 (DDP;
+# ring_attention as attn_fn, positions from the rank's offset, the MoE
+# over the global tokens).  Gates: the losses within LAYOUT_SPREAD of each
+# other (the JAX dryrun's spread); data and sequence equal to one rank's
+# plain step, expert to one rank's moe_apply on each token shard, within
+# LAYOUT_LOSS_ATOL, and every parameter's gradient within LAYOUT_GRAD_REL
+# (relative norm) of the same one-rank step's.  Then ring and Ulysses
+# attention on the JAX tests' shapes, forward and gradient against full
+# attention at their tolerances (|a - b| <= atol + rtol |b|).
+LAYOUTS = ("data", "expert", "sequence")
+LAYOUT_WORLD = 2
+LAYOUT_SEQ = 128
+LAYOUT_CONFIG = {"dtype": torch.float32, "num_heads": 4,
+                 "moe": MoEConfig(num_experts=4, top_k=2,
+                                  dtype=torch.float32)}
+LAYOUT_SPREAD = 5e-2
+LAYOUT_LOSS_ATOL = 1e-5
+LAYOUT_GRAD_REL = 1e-4
+SEQ_ATTN_TOL = {"forward": 2e-5, "gradient": 5e-4}
+
+
+def layout_ids(world) -> np.ndarray:
+    return np.random.default_rng(SEED + 5).integers(
+        0, 512, (max(4, world), LAYOUT_SEQ))
+
+
+def layout_model(state, device, attn_fn=None, moe_fn=None):
+    """GPT-2 tiny with LAYOUT_CONFIG's MoE, ``state``'s weights."""
+    from ray_tpu_torch.models import GPT2, GPT2Config
+
+    model = GPT2(GPT2Config.tiny(**LAYOUT_CONFIG), attn_fn, moe_fn)
+    model.load_state_dict(state, strict=True)
+    return model.to(device)
+
+
+def shard_moe(n):
+    """One rank's ``moe_apply`` on each of ``n`` token shards, at a
+    shard's capacity: what the expert-parallel MoE computes."""
+    def fn(x, w_router, w_in, w_out, cfg):
+        cap = cfg.capacity(x.shape[0] // n)
+        return torch.cat([moe_apply(s, w_router, w_in, w_out, cfg,
+                                    capacity=cap) for s in x.chunk(n)])
+    return fn
+
+
+def layout_reference(state, ids, device, world=LAYOUT_WORLD) -> dict:
+    """One rank's loss and gradients on the whole batch: the plain model,
+    and the model with ``shard_moe(world)``."""
+    out = {}
+    for name, moe_fn in (("plain", None), ("expert", shard_moe(world))):
+        model = layout_model(state, device, moe_fn=moe_fn)
+        loss = gpt2_loss_fn(model, {"input_ids": torch.from_numpy(ids).to(
+            device)})
+        loss.backward()
+        out[name] = {"loss": loss.item(),
+                     "grads": {k: p.grad.cpu()
+                               for k, p in model.named_parameters()}}
+    return out
+
+
+def layout_rank(layout, state, ids, device) -> dict:
+    """One rank of ``layout`` over the default process group: this
+    rank's rows (data, expert) or positions (sequence) of ``ids``, one
+    DDP forward and backward, the loss summed over the ranks.  Returns
+    the loss and the gradients (equal on every rank after DDP)."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    from ray_tpu_torch.ops.collectives import all_reduce_sum
+
+    mesh = make_mesh(MeshSpec({layout: -1}))
+    n, r = mesh.world, mesh.rank
+    b, length = ids.shape
+    group = mesh.axis_group(layout)
+    attn_fn = positions = None
+    if layout == "sequence":
+        ls = length // n
+        local = ids[:, r * ls:(r + 1) * ls]
+        labels = torch.from_numpy(ids[:, r * ls + 1:(r + 1) * ls + 1])
+        positions = torch.arange(r * ls, (r + 1) * ls).expand(b, ls)
+        attn_fn = functools.partial(ring_attention, mesh=mesh)
+        moe_fn = functools.partial(moe_apply_token_sharded, group=group,
+                                   rows=b)
+    else:
+        local = ids[r * b // n:(r + 1) * b // n]
+        if layout == "data":
+            moe_fn = functools.partial(moe_apply_token_sharded, group=group)
+        else:
+            ep = make_expert_parallel_moe(mesh, LAYOUT_CONFIG["moe"],
+                                          local.size)
+            moe_fn = lambda x, w_r, w_in, w_out, cfg: ep(  # noqa: E731
+                x, w_r, w_in, w_out)
+    model = layout_model(state, device, attn_fn, moe_fn)
+    ddp = DistributedDataParallel(
+        model, device_ids=None if device == "cpu" else [0])
+    ids_t = torch.from_numpy(local).to(device)
+    if layout == "sequence":
+        logits = ddp(ids_t, positions=positions.to(device))
+        part = F.cross_entropy(
+            logits[:, :labels.shape[1]].flatten(0, 1),
+            labels.to(device).flatten().long(),
+            reduction="sum") / (b * (length - 1))
+        scaled = part * n  # DDP averages the gradients: n * part sums them
+    else:
+        scaled = gpt2_loss_fn(ddp, {"input_ids": ids_t})
+        part = scaled / n
+    scaled.backward()
+    loss = all_reduce_sum(part.detach()).item()
+    return {"loss": loss, "grads": {k: p.grad.cpu()
+                                    for k, p in model.named_parameters()}}
+
+
+def grad_rel(got, want) -> tuple:
+    """(worst relative norm error over the parameters, its name)."""
+    rel = {k: ((got[k] - w).norm() / w.norm().clamp_min(1e-30)).item()
+           for k, w in want.items()}
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst
+
+
+def check_layouts(runs, ref) -> dict:
+    """Hold the layouts' runs to one rank's (``layout_reference``): the
+    gaps, raising when a bound is passed."""
+    numbers = {"spread": max(x["loss"] for x in runs.values())
+               - min(x["loss"] for x in runs.values())}
+    for layout, run in runs.items():
+        want = ref["expert" if layout == "expert" else "plain"]
+        numbers[f"{layout}_loss_gap"] = abs(run["loss"] - want["loss"])
+        numbers[f"{layout}_grad_rel"], worst = grad_rel(run["grads"],
+                                                        want["grads"])
+        if not (numbers[f"{layout}_loss_gap"] <= LAYOUT_LOSS_ATOL
+                and numbers[f"{layout}_grad_rel"] <= LAYOUT_GRAD_REL):
+            raise AssertionError(
+                f"[layouts] {layout}: loss {run['loss']} vs one rank's "
+                f"{want['loss']}, worst gradient {worst} "
+                f"{numbers[f'{layout}_grad_rel']}")
+    if not numbers["spread"] <= LAYOUT_SPREAD:
+        raise AssertionError(f"[layouts] losses {runs} spread "
+                             f"{numbers['spread']}")
+    return numbers
+
+
+def allclose_excess(got, want, rtol) -> float:
+    """max(|got - want| - rtol |want|): within ``assert_allclose(atol,
+    rtol)`` when at most atol."""
+    return ((got - want).abs() - rtol * want.abs()).max().item()
+
+
+def sequence_attention_checks(device) -> dict:
+    """Ring and Ulysses attention over the default group's ranks on the
+    JAX tests' shapes (B=2, L=256, D=16; 4 heads, Ulysses 8), causal and
+    not: this rank's shard of the output and of the gradients of sum(o^2)
+    against full attention's, as allclose excesses over the rtol."""
+    mesh = make_mesh(MeshSpec({"sequence": -1}))
+    n, r = mesh.world, mesh.rank
+    out = {}
+    for name, fn, h in (("ring", ring_attention, 4),
+                        ("ulysses", ulysses_attention, 8)):
+        rng = np.random.default_rng(SEED + 6)
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (2, 256, h, 16), dtype=np.float32)).to(device) for _ in range(3))
+        ls = q.shape[1] // n
+        rows = slice(r * ls, (r + 1) * ls)
+        for causal in (False, True):
+            shards = [t[:, rows].clone().requires_grad_(True)
+                      for t in (q, k, v)]
+            o = fn(*shards, mesh, causal=causal)
+            (o ** 2).sum().backward()
+            full = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            o_ref = attn.mha_attention(*full, causal=causal,
+                                       use_flash=False)
+            (o_ref ** 2).sum().backward()
+            tag = f"{name} causal={causal}"
+            tol = SEQ_ATTN_TOL
+            out[f"{tag} forward"] = allclose_excess(
+                o, o_ref[:, rows].detach(), tol["forward"])
+            out[f"{tag} gradient"] = max(
+                allclose_excess(s.grad, f.grad[:, rows], tol["gradient"])
+                for s, f in zip(shards, full))
+    return out
+
+
+def layouts_loop(config):
+    """TorchTrainer's worker (one of two): each layout's step, then the
+    sequence-parallel attention checks; the worst check over the ranks."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.air import session
+
+    torch.set_float32_matmul_precision("highest")
+    zero_launches()
+    out = {layout: layout_rank(layout, config["state"], config["ids"],
+                               "cuda") for layout in LAYOUTS}
+    checks = sequence_attention_checks("cuda")
+    both = [None] * dist.get_world_size()
+    dist.all_gather_object(both, checks)
+    out["attention"] = {k: max(c[k] for c in both) for k in checks}
+    out["launches"] = dict(attn.LAUNCHES)
+    out["jax"] = jax_modules()
+    session.report(out)
+
+
+def phase_layouts(card) -> dict:
+    """The three layouts and the sequence-parallel attention checks in two
+    TorchTrainer workers at half the card each over gloo, held to one
+    rank's steps in this process.  Returns the workers' flash launches
+    (none: L=128 takes the plain path)."""
+    state = build_model("gpt2", LAYOUT_CONFIG, seed=SEED,
+                        device="cpu").state_dict()
+    ids = layout_ids(LAYOUT_WORLD)
+    t0 = time.time()
+    result = TorchTrainer(
+        layouts_loop, train_loop_config={"state": state, "ids": ids},
+        scaling_config=ScalingConfig(num_workers=LAYOUT_WORLD, use_gpu=True,
+                                     gpus_per_worker=DP2_GPUS)).fit()
+    fit_s = time.time() - t0
+    if result.error is not None:
+        raise AssertionError(f"[layouts] {result.error}")
+    m = result.metrics
+    ref = layout_reference(state, ids, "cuda")
+    numbers = check_layouts({k: m[k] for k in LAYOUTS}, ref)
+    bad = {k: e for k, e in m["attention"].items()
+           if not e <= SEQ_ATTN_TOL[k.rsplit(" ", 1)[1]]}
+    note("layouts", fit_s=fit_s, **numbers,
+         **{k.replace(" ", "_"): e for k, e in m["attention"].items()})
+    log(f"[layouts] {card} | GPT-2 tiny MoE (4 experts, top-2, fp32, 4 "
+        f"heads) at {ids.shape[0]}x{ids.shape[1]}, two TorchTrainer workers "
+        f"at {DP2_GPUS} of the card over gloo: losses "
+        + ", ".join(f"{k} {m[k]['loss']:.6f} (one rank's "
+                    f"{ref['expert' if k == 'expert' else 'plain']['loss']:.6f}"
+                    f", gradient rel {numbers[f'{k}_grad_rel']:.3g})"
+                    for k in LAYOUTS)
+        + f"; spread {numbers['spread']:.3g} (bound {LAYOUT_SPREAD}; loss "
+        f"bound {LAYOUT_LOSS_ATOL}, gradient bound {LAYOUT_GRAD_REL}); ring "
+        f"and Ulysses against full attention, allclose excess over the "
+        f"rtol (bounds forward {SEQ_ATTN_TOL['forward']}, gradient "
+        f"{SEQ_ATTN_TOL['gradient']}): "
+        + ", ".join(f"{k} {e:.3g}" for k, e in m["attention"].items())
+        + f"; flash launches {m['launches']}; fit {fit_s:.1f} s")
+    if bad or m["jax"] or any(m["launches"].values()):
+        raise AssertionError(f"[layouts] attention {bad}, worker "
+                             f"{m['jax']}, launches {m['launches']}")
+    return {"layouts": m["launches"]}
+
+
 def timed(tag, phase, *args):
     """Run one phase, log its seconds and keep them for its record line."""
     RECORD.setdefault(tag, {})
@@ -5697,11 +6196,13 @@ def main():
         del serve_model
         torch.cuda.empty_cache()
         train = timed("train", phase_train, card)
+        moe = timed("moe-train", phase_moe_train, card)
         actor_train, actor_rates = timed("actor-train", phase_actor_train,
                                          card, train)
         trainer, trainer_runs = timed("trainer", phase_trainer, card, train,
                                       actor_rates)
         trainer.update(timed("zero", phase_zero, card, trainer_runs))
+        resnet = timed("resnet", phase_resnet, card)
         actor_rl = {"ppo-actor": timed("ppo-actor", phase_ppo_actor,
                                        card)["flash"],
                     "impala-actor": timed("impala-actor", phase_impala_actor,
@@ -5716,6 +6217,7 @@ def main():
                        object_store_memory=DP2_STORE_BYTES)
     try:
         trainer.update(timed("dp2", phase_dp2, card, trainer_runs))
+        layouts = timed("layouts", phase_layouts, card)
     finally:
         ray_tpu_torch.shutdown()
     timed("train-fp32", phase_train_fp32)
@@ -5767,7 +6269,8 @@ def main():
     by_path = {"fp32": {"flash_fwd": fp32_launches}, **serving, **rlhf,
                **{f"train {tag}": run["launches"]
                   for tag, run in train.items()},
-               **actor_train, **trainer, **actor_rl,
+               **moe, **actor_train, **trainer, **resnet, **layouts,
+               **actor_rl,
                **llama, "ppo": ppo["flash"], **rl}
     # dq's and dkv's top-level fields are those of the first training
     # shape; the forward's are the serving shape's.

@@ -103,10 +103,16 @@ class Dataset:
         return Dataset(ray_tpu_torch.put_many(blocks))
 
     # ---------------- transforms (lazy plan ops) ----------------
-    def map_batches(self, fn, batch_format: str = "numpy") -> "Dataset":
+    def map_batches(self, fn, batch_format: str = "numpy",
+                    num_gpus: float = 0) -> "Dataset":
+        """``fn`` over every block's batch.  ``num_gpus`` is the share of
+        a card each block's task asks for (0: a CPU task, whose worker
+        sees no GPU)."""
         check_batch_format(batch_format)
-        return Dataset(self._sources,
-                       self._plan + [("map_batches", fn, batch_format)])
+        op = ("map_batches", fn, batch_format)
+        if num_gpus:
+            op += (num_gpus,)
+        return Dataset(self._sources, self._plan + [op])
 
     map = not_ported("Dataset.map")
     filter = not_ported("Dataset.filter")

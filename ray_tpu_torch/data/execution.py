@@ -8,7 +8,9 @@ consumption drives the plan through a bounded
 :class:`ray_tpu_torch.parallel.flow.RefStream`: one fused task per block
 applies the whole op chain, and at most ``window`` output blocks are in
 flight or resident at once.  Plan ops are ``(kind, fn, batch_format)``
-tuples.  The port has one kind, ``"map_batches"``: the reference's
+tuples, or ``(kind, fn, batch_format, num_gpus)`` for an op whose task
+must reach the card (``BatchPredictor``'s): a block's fused task asks for
+the largest share its ops name.  The port has one kind, ``"map_batches"``: the reference's
 ``filter``, indexed maps (for ``random_shuffle``) and lazy read sources
 are ROADMAP Queue 1 item 1c.
 
@@ -26,12 +28,12 @@ from ray_tpu_torch.data.block import apply_batch_fn, block_num_rows
 # consumers (iter_batches / count / take).
 DEFAULT_WINDOW = 4
 
-PlanOp = Tuple[str, Any, Optional[str]]
+PlanOp = Tuple  # (kind, fn, batch_format[, num_gpus])
 
 
 def apply_op(blk, op: PlanOp):
     """Apply ONE plan op to a block."""
-    kind, fn, _ = op
+    kind, fn = op[0], op[1]
     if kind == "map_batches":
         return apply_batch_fn(blk, fn)
     raise ValueError(f"unknown plan op {kind!r}")
@@ -55,17 +57,25 @@ def _count_after_ops(blk, ops):
     return block_num_rows(apply_ops(blk, ops))
 
 
+def _with_gpus(task, ops: Sequence[PlanOp]):
+    """``task`` asking for the largest GPU share among ``ops``."""
+    gpus = max((op[3] for op in ops if len(op) > 3), default=0)
+    return task.options(num_gpus=gpus) if gpus else task
+
+
 def _submit_thunk(src, ops: List[PlanOp]) -> Callable[[], Any]:
     """One submit thunk per block for the RefStream: a ref with ops
     chains them in one task; a ref with no ops passes through untouched
     (no task, no copy)."""
     if ops:
-        return lambda: _apply_ops_task.remote(src, ops)
+        task = _with_gpus(_apply_ops_task, ops)
+        return lambda: task.remote(src, ops)
     return lambda: src
 
 
 def _count_thunk(src, ops: List[PlanOp]) -> Callable[[], Any]:
-    return lambda: _count_after_ops.remote(src, ops)
+    task = _with_gpus(_count_after_ops, ops)
+    return lambda: task.remote(src, ops)
 
 
 class PlanExecutor:

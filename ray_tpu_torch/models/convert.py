@@ -10,6 +10,8 @@ names of ``ray_tpu/models/gpt2.py::_AXIS_BY_NAME``:
 - ``h_{i}/ln_1|ln_2/{scale,bias}`` -> ``h.{i}.ln_1|ln_2.{weight,bias}``;
 - ``h_{i}/attn_qkv|attn_proj|mlp_fc|mlp_proj/{kernel [in, out], bias}``
   -> ``h.{i}.<name>.{weight [out, in] (transposed), bias}``;
+- ``h_{i}/moe_router|moe_w_in|moe_w_out`` (the MoE blocks) ->
+  ``h.{i}.<name>`` as they are (the einsums use them untransposed);
 - ``wte`` and ``wpe`` as they are; ``ln_f`` as a LayerNorm;
 - for ``GPT2WithValue`` (the RLHF actor-critic): ``lm/...`` -> ``lm.``
   plus the names above, ``value_head/{kernel [h, 1], bias [1]}`` ->
@@ -77,6 +79,17 @@ The rest of RLlib:
 - BC's and MARWIL's module (MARWIL's value head is its ``vf_mlp``) is a
   ``DiscreteActorCritic``: ``actor_critic_from_flax``.
 
+``resnet_params_from_jax``, for ``ray_tpu_torch.models.ResNet``, from
+flax's ``params`` and ``batch_stats``:
+
+- ``stem/kernel`` and each ``ResNetBlock_{i}/Conv_{j}/kernel`` (HWIO) ->
+  ``stem.weight`` and ``blocks.{i}.conv_{j}.weight`` (OIHW);
+- ``stem_bn`` and ``ResNetBlock_{i}/BatchNorm_{j}``: ``scale``/``bias``
+  -> ``weight``/``bias``, and from ``batch_stats`` ``mean``/``var`` ->
+  ``running_mean``/``running_var``;
+- ``head/{kernel [in, out], bias}`` -> ``head.{weight (transposed),
+  bias}``.
+
 ``layerskip_draft`` builds the speculative-decoding draft of
 ``bench.py::bench_serving_spec`` (``:768-774``) from a target GPT-2: one
 layer, with copies of the target's ``wte``, ``wpe``, ``h.0`` and
@@ -92,6 +105,7 @@ import torch
 
 _DENSE = ("attn_qkv", "attn_proj", "mlp_fc", "mlp_proj")
 _NORMS = ("ln_1", "ln_2")
+_MOE = ("moe_router", "moe_w_in", "moe_w_out")
 
 
 def _norm(prefix: str, sub: Mapping[str, Any], out: Dict[str, torch.Tensor]):
@@ -130,6 +144,8 @@ def gpt2_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 prefix = f"h.{i}.{layer}"
                 if layer in _NORMS:
                     _norm(prefix, p, out)
+                elif layer in _MOE:
+                    out[prefix] = _tensor(p)
                 elif layer in _DENSE:
                     if set(p) != {"kernel", "bias"}:
                         raise KeyError(f"{prefix}: expected kernel/bias, "
@@ -385,6 +401,52 @@ def dyna_q_from_flax(q_tree: Mapping[str, Any], model_tree: Mapping[str, Any]
     for prefix, tree in (("q", q_tree), ("model", model_tree)):
         _rl_walk({"net": _params_of(tree, prefix)}, out, prefix,
                  lambda *args: False)
+    return out
+
+
+def _resnet_norm(prefix, params, stats, out):
+    _norm(prefix, params, out)
+    if set(stats) != {"mean", "var"}:
+        raise KeyError(f"{prefix}: expected mean/var, got {sorted(stats)}")
+    out[f"{prefix}.running_mean"] = _tensor(stats["mean"])
+    out[f"{prefix}.running_var"] = _tensor(stats["var"])
+
+
+def _conv_kernel(prefix, p, out):
+    if set(p) != {"kernel"}:
+        raise KeyError(f"{prefix}: expected kernel, got {sorted(p)}")
+    out[f"{prefix}.weight"] = _tensor(
+        np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+
+
+def resnet_params_from_jax(params: Mapping[str, Any],
+                           batch_stats: Mapping[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """flax ResNet ``params`` and ``batch_stats`` (nested dicts of numpy
+    arrays) -> port state_dict.  Raises ``KeyError`` on a name it does
+    not know."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, sub in params.items():
+        if name == "stem":
+            _conv_kernel("stem", sub, out)
+        elif name == "stem_bn":
+            _resnet_norm("stem_bn", sub, batch_stats["stem_bn"], out)
+        elif name == "head":
+            out["head.weight"] = _tensor(np.asarray(sub["kernel"]).T)
+            out["head.bias"] = _tensor(sub["bias"])
+        elif re.fullmatch(r"ResNetBlock_\d+", name):
+            i = int(name.rsplit("_", 1)[1])
+            for layer, p in sub.items():
+                kind, j = layer.rsplit("_", 1)
+                if kind == "Conv":
+                    _conv_kernel(f"blocks.{i}.conv_{j}", p, out)
+                elif kind == "BatchNorm":
+                    _resnet_norm(f"blocks.{i}.bn_{j}", p,
+                                 batch_stats[name][layer], out)
+                else:
+                    raise KeyError(f"unknown ResNet layer {name}/{layer}")
+        else:
+            raise KeyError(f"unknown ResNet parameter {name!r}")
     return out
 
 

@@ -15,7 +15,21 @@ same logits:
 
 Attention goes through ``ops.attention``: ``mha_attention`` (the Hopper
 flash kernels on long CUDA inputs, differentiable) for the full-context
-forward, and ``cached_attention`` for the incremental-decode path.
+forward, and ``cached_attention`` for the incremental-decode path.  An
+``attn_fn(q, k, v)`` given to ``GPT2`` or ``Block`` replaces
+``mha_attention`` in the full-context forward (``ring_attention`` over a
+``sequence`` axis, with the rank's ``positions``).
+
+With ``GPT2Config.moe`` set, every block's dense MLP becomes a top-k
+routed expert MLP (``ops.moe``): parameters ``moe_router`` [d, E],
+``moe_w_in`` [E, d, f] and ``moe_w_out`` [E, f, d], fp32.  Its input is
+``ln_2``'s fp32 output, so the router, the dispatch and the expert FFN
+run in fp32 in a bf16 model too; only the sum is cast to the compute
+dtype.  The block calls ``moe_fn(tokens, w_router, w_in, w_out, moe)``,
+``moe_apply`` by default; the ``expert`` layout passes the
+expert-parallel one (``make_expert_parallel_moe``), where the JAX
+package gets the same placement from GSPMD.
+
 ``gpt2_loss_fn`` is the training objective.  ``GPT2WithValue`` is the
 RLHF actor-critic: a ``GPT2`` named ``lm`` plus an fp32 value head over
 its post-``ln_f`` hidden state.
@@ -23,7 +37,7 @@ its post-``ln_f`` hidden state.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -31,6 +45,7 @@ import torch.nn.functional as F
 
 from ray_tpu_torch.ops.attention import cached_attention, mha_attention
 from ray_tpu_torch.ops.layers import gelu
+from ray_tpu_torch.ops.moe import MoEConfig, moe_apply
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,10 +57,17 @@ class GPT2Config:
     hidden_size: int = 768
     mlp_ratio: int = 4
     dtype: torch.dtype = torch.bfloat16
+    # Mixture-of-Experts in place of every block's dense MLP.
+    moe: Optional[MoEConfig] = None
 
     @classmethod
     def gpt2_small(cls, **kw):  # 125M
         return cls(**kw)
+
+    @classmethod
+    def moe_tiny(cls, num_experts: int = 8, top_k: int = 2, **kw):
+        kw.setdefault("moe", MoEConfig(num_experts=num_experts, top_k=top_k))
+        return cls.tiny(**kw)
 
     @classmethod
     def gpt2_medium(cls, **kw):  # 350M
@@ -112,17 +134,26 @@ def _dense(layer: nn.Linear, x: torch.Tensor,
 
 
 class Block(nn.Module):
-    def __init__(self, config: GPT2Config):
+    def __init__(self, config: GPT2Config, attn_fn: Optional[Callable] = None,
+                 moe_fn: Optional[Callable] = None):
         super().__init__()
         c = config
         self.config = c
-        d = c.hidden_size
+        self.attn_fn = attn_fn
+        self.moe_fn = moe_fn or moe_apply
+        d, f = c.hidden_size, c.mlp_ratio * c.hidden_size
         self.ln_1 = LayerNorm(d)
         self.attn_qkv = nn.Linear(d, 3 * d)
         self.attn_proj = nn.Linear(d, d)
         self.ln_2 = LayerNorm(d)
-        self.mlp_fc = nn.Linear(d, c.mlp_ratio * d)
-        self.mlp_proj = nn.Linear(c.mlp_ratio * d, d)
+        if c.moe is None:
+            self.mlp_fc = nn.Linear(d, f)
+            self.mlp_proj = nn.Linear(f, d)
+        else:
+            e = c.moe.num_experts
+            self.moe_router = nn.Parameter(torch.zeros(d, e))
+            self.moe_w_in = nn.Parameter(torch.zeros(e, d, f))
+            self.moe_w_out = nn.Parameter(torch.zeros(e, f, d))
 
     def forward(self, x: torch.Tensor, kv=None):
         """``kv = (k_cache, v_cache, lengths)`` switches the block to the
@@ -140,13 +171,20 @@ class Block(nn.Module):
         if kv is not None:
             k_cache, v_cache, lengths = kv
             attn = cached_attention(q, k, v, k_cache, v_cache, lengths)
+        elif self.attn_fn is not None:
+            attn = self.attn_fn(q, k, v)
         else:
             attn = mha_attention(q, k, v, causal=True)
         attn = attn.reshape(b, l, c.hidden_size)
         x = x + _dense(self.attn_proj, attn, c.dtype)
         h = self.ln_2(x)
-        h = gelu(_dense(self.mlp_fc, h, c.dtype))
-        x = x + _dense(self.mlp_proj, h, c.dtype)
+        if c.moe is None:
+            h = gelu(_dense(self.mlp_fc, h, c.dtype))
+            x = x + _dense(self.mlp_proj, h, c.dtype)
+        else:
+            out = self.moe_fn(h.reshape(b * l, -1), self.moe_router,
+                              self.moe_w_in, self.moe_w_out, c.moe)
+            x = x + out.reshape(b, l, -1).to(c.dtype)
         if kv is not None:
             return x, (k, v)
         return x
@@ -154,16 +192,19 @@ class Block(nn.Module):
 
 class GPT2(nn.Module):
     """GPT-2 language model with fp32 parameters.  ``wte`` [V, d] and
-    ``wpe`` [P, d] are plain parameters (the head is tied to ``wte``)."""
+    ``wpe`` [P, d] are plain parameters (the head is tied to ``wte``).
+    ``attn_fn`` and ``moe_fn`` go to every block."""
 
-    def __init__(self, config: GPT2Config):
+    def __init__(self, config: GPT2Config, attn_fn: Optional[Callable] = None,
+                 moe_fn: Optional[Callable] = None):
         super().__init__()
         c = config
         self.config = c
         self.wte = nn.Parameter(torch.zeros(c.vocab_size, c.hidden_size))
         self.wpe = nn.Parameter(torch.zeros(c.max_position_embeddings,
                                             c.hidden_size))
-        self.h = nn.ModuleList(Block(c) for _ in range(c.num_layers))
+        self.h = nn.ModuleList(Block(c, attn_fn, moe_fn)
+                               for _ in range(c.num_layers))
         self.ln_f = LayerNorm(c.hidden_size)
 
     def forward(self, input_ids: torch.Tensor,
@@ -175,7 +216,8 @@ class GPT2(nn.Module):
         """Full context: input_ids [B, L] -> logits [B, L, vocab] fp32;
         with ``return_hidden`` also the post-``ln_f`` hidden state
         [B, L, hidden] fp32 (the value head's input in
-        ``GPT2WithValue``).
+        ``GPT2WithValue``).  ``positions`` [B, L], when given, index
+        ``wpe`` (a ``sequence`` rank's shard starts past 0).
 
         Incremental decode (``kv_caches`` given): ``positions`` [B, L] are
         the absolute positions of the new tokens (they index ``wpe``),

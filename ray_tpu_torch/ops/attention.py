@@ -8,6 +8,9 @@ the TPU kernel ``_flash_fwd_kernel``); its gradient is ``_FlashAttention``
 ``csrc/flash_bwd.cu`` (the ports of ``_flash_dq_kernel`` and
 ``_flash_dkv_kernel``).  ``cached_attention`` is the engine's decode
 path; the JAX package runs it as plain XLA, so it stays plain PyTorch here.
+``blockwise_update`` and ``finalize_blockwise`` are the online-softmax
+recurrence that ring attention folds its K/V blocks with (plain jnp in
+the JAX package too).
 
 On CPU tensors ``flash_attention`` and its gradient compute their plain
 versions (``flash_attention_reference`` and
@@ -108,6 +111,41 @@ def cached_attention(q: torch.Tensor, k_new: torch.Tensor,
     scores = scores.masked_fill(~mask[:, None], NEG_INF)
     p = torch.softmax(scores.float(), dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+# ---------------------------------------------------------------------------
+# Online-softmax block update (the flash recurrence), shared by ring
+# attention: numerically safe when a block is fully masked.
+# ---------------------------------------------------------------------------
+def blockwise_update(q, k_blk, v_blk, o, l, m, mask=None,
+                     sm_scale: Optional[float] = None):
+    """One step of the flash-attention recurrence
+    (``ray_tpu/ops/attention.py:129``).
+
+    q: [B, Lq, H, D]; k_blk/v_blk: [B, Lk, H, D]; o: [B, Lq, H, D] fp32
+    unnormalized accumulator; l: [B, H, Lq] running denominator; m:
+    [B, H, Lq] running max; mask: optional [Lq, Lk] bool (True = attend).
+    A row masked so far keeps m = NEG_INF and l = 0, o = 0."""
+    d = q.shape[-1]
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k_blk).float() * scale
+    if mask is not None:
+        s = s.masked_fill(~mask[None, None], NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    corr = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    p = p.masked_fill(s <= NEG_INF / 2, 0.0)
+    l_new = l * corr + p.sum(-1)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p.to(v_blk.dtype), v_blk)
+    o_new = o * corr.transpose(1, 2)[..., None].to(o.dtype) + pv
+    return o_new, l_new, m_new
+
+
+def finalize_blockwise(o, l):
+    """Normalize the accumulator; fully-masked rows return zeros."""
+    denom = l.transpose(1, 2)[..., None]
+    return torch.where(denom > 0, o / denom.to(o.dtype).clamp_min(1e-30),
+                       torch.zeros((), dtype=o.dtype, device=o.device))
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,8 @@ group):
   of the local flat gradient; each rank ends with the fp32 **mean** of its
   own chunk, summed in rank order.  One int8 ``all_to_all`` plus the
   scales' ``all_to_all``.
+- ``all_to_all(rows, group)``: the differentiable all-to-all of the
+  expert-parallel MoE and of Ulysses attention.
 - ``quantized_pmean(tree, group)``: drop-in for a mean all-reduce over a
   gradient tree: reduce-scatter in int8, re-quantize each rank's reduced
   chunk, ``all_gather`` the int8 chunks, dequantize identically
@@ -131,6 +133,28 @@ def all_to_all_rows(rows: torch.Tensor, group=None) -> torch.Tensor:
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
     return recv.to(rows.device)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_rows`` with its gradient: the all-to-all of equal
+    rows is its own adjoint (row j of rank i's result is row i of rank
+    j's input), so the backward sends the gradient's rows back the same
+    way."""
+
+    @staticmethod
+    def forward(ctx, rows, group):
+        ctx.group = group
+        return all_to_all_rows(rows, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_to_all_rows(grad, ctx.group), None
+
+
+def all_to_all(rows: torch.Tensor, group=None) -> torch.Tensor:
+    """Differentiable ``all_to_all_rows`` (the expert-parallel MoE's and
+    Ulysses attention's ``lax.all_to_all``)."""
+    return _AllToAll.apply(rows, group)
 
 
 def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:

@@ -4,12 +4,14 @@
 ``MeshSpec`` is copied (``ray_tpu/parallel/mesh.py:25``, numpy only).
 A JAX mesh is an array of devices with named axes, and one program runs
 over it.  The port runs one process per rank, so its ``Mesh`` is a small
-class of its own (not ``torch.distributed.device_mesh``, which would
-open sub-groups per axis that nothing here uses): the gang's
-``torch.distributed`` process group with the spec's axes solved against
-its world size, and this rank's coordinate on each axis (row-major over
-``CANONICAL_AXES``, the JAX layout's order).  Without a process group
-the mesh is this process alone, every axis of size 1.
+class of its own (not ``torch.distributed.device_mesh``, which opens a
+sub-group for every axis up front): the gang's ``torch.distributed``
+process group with the spec's axes solved against its world size, and
+this rank's coordinate on each axis (row-major over ``CANONICAL_AXES``,
+the JAX layout's order).  ``axis_group`` opens an axis's sub-group when a
+collective over that axis first asks for it (ring and Ulysses attention
+over ``sequence``, the expert-parallel MoE over ``expert``).  Without a
+process group the mesh is this process alone, every axis of size 1.
 
 Copied from ``ray_tpu/parallel/mesh.py`` (the JAX package), with
 ``make_mesh`` building that class.
@@ -89,6 +91,7 @@ class Mesh:
         sizes = [n for _, n in ordered]
         idx = np.unravel_index(self.rank, sizes)
         self.coords = {a: int(i) for a, i in zip(self.axis_names, idx)}
+        self._axis_groups: Dict[str, object] = {}
 
     @property
     def size(self) -> int:
@@ -103,6 +106,35 @@ class Mesh:
                 index = index * self.shape[a] + self.coords[a]
                 count *= self.shape[a]
         return index, count
+
+    def axis_group(self, axis: str):
+        """The process group of this rank's line along ``axis``: the ranks
+        whose coordinates differ from this one's on ``axis`` alone, in
+        their order on it (what a JAX collective over the named axis
+        reaches).  A group of its own even when the line is the whole
+        mesh, so that its traffic never interleaves with the default
+        group's (DDP's gradient buckets).  Every rank of the mesh must
+        make the first call for an axis together (``new_group`` is
+        collective); the group is cached.  None when the axis has one
+        rank."""
+        if self.shape.get(axis, 1) == 1:
+            return None
+        groups = self._axis_groups
+        if axis not in groups:
+            import torch.distributed as dist
+
+            sizes = [self.shape[a] for a in self.axis_names]
+            at = self.axis_names.index(axis)
+            ranks = np.arange(self.world).reshape(sizes)
+            lines = np.moveaxis(ranks, at, -1).reshape(-1, sizes[at])
+            for line in lines:  # every rank makes every group, in order
+                members = [r if self.group is None else
+                           dist.get_global_rank(self.group, int(r))
+                           for r in line]
+                g = dist.new_group([int(r) for r in members])
+                if self.rank in line:
+                    groups[axis] = g
+        return groups[axis]
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank})"

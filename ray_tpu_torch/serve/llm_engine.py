@@ -1561,8 +1561,9 @@ def build_model(model_kind: str = "gpt2", config_kw: Optional[dict] = None,
     The init draws flax's distributions from a CPU ``torch.Generator``,
     so every device gets the same weights; they are not JAX's values.
     GPT-2: normal(0.02) for ``wte``, normal(0.01) for ``wpe``,
-    lecun-normal Dense kernels, zero biases.  Llama (``nn.Embed`` and
-    ``nn.Dense`` defaults): normal(1/sqrt(hidden)) for ``embed``,
+    lecun-normal Dense kernels, zero biases, and with ``moe`` set
+    normal(0.02) for each block's router and expert stacks.  Llama
+    (``nn.Embed`` and ``nn.Dense`` defaults): normal(1/sqrt(hidden)) for ``embed``,
     lecun-normal for every Dense kernel, ones for the RMSNorm scales; the
     module is made on the meta device and each parameter is drawn on the
     CPU and copied to ``device`` in turn, so no CPU copy of the whole
@@ -1603,6 +1604,11 @@ def build_model(model_kind: str = "gpt2", config_kw: Optional[dict] = None,
             if isinstance(module, torch.nn.Linear):
                 _lecun_normal_(module.weight, gen)
                 module.bias.zero_()
+        if cfg.moe is not None:  # after the rest: dense draws unchanged
+            for block in model.h:
+                for w in (block.moe_router, block.moe_w_in,
+                          block.moe_w_out):
+                    w.normal_(0.0, 0.02, generator=gen)
     return model.to(device).eval()
 
 

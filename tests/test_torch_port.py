@@ -91,6 +91,7 @@ def test_entry_points_without_device_raise_when_there_is_no_cuda():
     from ray_tpu_torch import resolve_device
     from ray_tpu_torch.rllib import APPOConfig, IMPALAConfig, PPOConfig
     from ray_tpu_torch.serve import LLMEngine, LLMServer, NaiveLM, build_model
+    from ray_tpu_torch.train import TorchPredictor
 
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
@@ -101,6 +102,7 @@ def test_entry_points_without_device_raise_when_there_is_no_cuda():
              lambda: LLMEngine(cpu_model, start=False),
              lambda: NaiveLM(cpu_model, width=64),
              lambda: LLMServer("gpt2", seed=0),
+             lambda: TorchPredictor(torch.nn.Linear(2, 2)),
              lambda: PPOConfig().environment("CartPole-v1").anakin(
                  num_envs=4, unroll_length=4).build(),
              lambda: PPOConfig().resources(device="cuda").build(),
@@ -210,6 +212,8 @@ def test_chip_smokes_remote_code_pickles_by_value():
                     chip_smoke.cpu_task_view, chip_smoke.train_steps,
                     chip_smoke.trainer_loop, chip_smoke.FlashServer,
                     chip_smoke.dp2_loop, chip_smoke.learner_factory,
+                    chip_smoke.resnet_loop, chip_smoke.resnet_model,
+                    chip_smoke.layouts_loop,
                     chip_smoke.learner_weights,
                     *chip_smoke.elastic_problem()):
             assert cloudpickle.loads(cloudpickle.dumps(obj)).__name__ == \
