@@ -52,14 +52,24 @@ three main paths with random weights from a seed:
   step in the worker, the losses bit for bit ``[train]``'s) and
   ``[trainer]`` (``bench_gpt2``'s two fits, B=16 S=1024 and B=4 S=4096,
   through ``TorchTrainer`` with one GPU worker: int32 tokens from
-  ``data.from_numpy``, the batches through ``get_dataset_shard`` ->
-  ``iter_device_batches``; 12 launches of each kernel a step in the
+  ``data.from_numpy`` at 1k and from .npy shards through ``read_numpy``
+  and a ``BatchMapper`` at 4k, the batches through ``get_dataset_shard``
+  -> ``iter_device_batches``; 12 launches of each kernel a step in the
   worker, and at 1k the losses bit for bit those of the same steps on the
-  same batches in this process), ``[zero]`` (``bench_gpt2``'s third fit,
+  same batches in this process), ``[data]`` (``bench_streaming_data``'s
+  plan, 16 lazy reads of 4 MiB and a map, streaming in a window of 3
+  against eager: blocks/s, peak resident store bytes, peak in flight,
+  the same blocks and checksum, the window held, streaming's peak below
+  eager's; then GPT-2 small's step at B=16 S=1024 fed through
+  ``read_streaming`` -> ``BatchMapper`` -> ``random_shuffle(seed=0)`` ->
+  ``iter_device_batches`` under a store budget: 12 launches of each
+  kernel a step, finite falling losses, the rows consumed are the rows
+  written, the store's peak within the budget; tokens/s beside
+  ``[train]``'s), ``[zero]`` (``bench_gpt2``'s third fit,
   ZeRO-2 with the int8 wire through ``compile_zero_step``, one worker over
   NCCL: world 1, so the update is the plain one and its losses equal
-  ``[trainer]``'s bit for bit; one step profiled by kernel group), then
-  actor-mode RL: ``[ppo-actor]``
+  ``[trainer]``'s bit for bit; one step profiled by kernel group); and
+  actor-mode RL, which runs just after ``[runtime]``: ``[ppo-actor]``
   (``bench_ppo_real_env``'s configuration on CartPole-v1: 2 CPU rollout
   actors x 8 envs x 256 steps, the streaming sampler with 2 fragments in
   flight a worker, the learner on the card; trained to reward 100, then
@@ -118,7 +128,7 @@ three main paths with random weights from a seed:
   the Nature CNN, fp32), after its env and module are held against the
   CPU; trained to the bench's reward floor, then timed and profiled
   (with the device time of cuDNN's layout transposes);
-- the rest of the one-process RL path, last: the MinAtar, Pendulum and
+- the rest of the one-process RL path: the MinAtar, Pendulum and
   StatelessCartPole envs' ``step_core`` card against CPU (``[envs]``);
   PPO (``[ppo-minatar]``) and IMPALA (``[impala]``, seeds in turn) on
   Breakout-MinAtar at ``bench_ppo_breakout``'s and
@@ -152,8 +162,14 @@ each kernel (in CUDA graphs, without the host's enqueue) beside its
 bound, its achieved TFLOP/s, its plain version and PyTorch's SDPA, in
 bf16 at the training shapes (GPT-2's two and llama_1b's) and in fp32 at
 the fp32 step's shape.
+The RL phases that need no cluster, ``[ppo-parity]`` to ``[cli]``, run
+in a process of their own (``chip_smoke.py --rl-phases <dir>``),
+started before the cluster and joined before ``[train]``: beside
+``[runtime]`` to ``[swap]``, whose times are readings only, so that the
+training phases and the kernels' timings have the card to themselves.
+Its log is printed where it is joined.
 Every phase raises on failure and nothing is caught, so any failure
-exits non-zero.
+exits non-zero; a failure in the RL phases' process fails the join.
 
 Just before the kernels line come one ``[record]`` line a phase (its
 seconds and headline numbers as compact JSON), so that a log cut to its
@@ -1769,16 +1785,44 @@ def phase_actor_train(card, train) -> dict:
 
 # [trainer]: bench_gpt2 (bench.py:186-215, :263-270) through TorchTrainer:
 # int32 tokens from default_rng(0), B * (iters + 2) rows (warm-up, timed
-# steps, one spare) in from_numpy(parallelism=8), one worker with one GPU.
-# At 1k the worker's losses must equal the same steps in this process on
-# the same batches bit for bit, as [actor-train]'s equal [train]'s.
+# steps, one spare) in 8 blocks, one worker with one GPU: at 1k through
+# from_numpy(parallelism=8), at 4k written as 8 .npy shards of the same
+# rows and read back through read_numpy and a BatchMapper (the same rows
+# in the same order).  At 1k the worker's losses must equal the same
+# steps in this process on the same batches bit for bit, as
+# [actor-train]'s equal [train]'s.
 TRAINER_FITS = ((16, 1024, 20), (4, 4096, 10))  # (B, S, timed steps)
 TRAINER_LOSS_ATOL = 0.0
+TRAINER_BLOCKS = 8
 
 
 def trainer_tokens(b, length, iters) -> np.ndarray:
     return np.random.default_rng(0).integers(
         0, 50257, size=(b * (iters + 2), length), dtype=np.int32)
+
+
+def write_shards(root, rows, n) -> list:
+    """``rows`` as ``n`` .npy files, split where from_numpy(parallelism=n)
+    splits them; the paths in row order."""
+    bounds = np.linspace(0, len(rows), n + 1, dtype=int)
+    paths = []
+    for i, (a, b) in enumerate(zip(bounds, bounds[1:])):
+        paths.append(os.path.join(root, f"rows-{i:05d}.npy"))
+        np.save(paths[-1], rows[a:b])
+    return paths
+
+
+def as_tokens(batch):
+    """read_numpy's ``data`` column as the step's ``tokens``."""
+    return {"tokens": batch["data"]}
+
+
+def trainer_dataset(tokens, length, root):
+    if length == 1024:
+        return rdata.from_numpy({"tokens": tokens},
+                                parallelism=TRAINER_BLOCKS)
+    paths = write_shards(root, tokens, TRAINER_BLOCKS)
+    return rdata.BatchMapper(as_tokens).transform(rdata.read_numpy(paths))
 
 
 def process_start() -> float:
@@ -1830,17 +1874,21 @@ def phase_trainer(card, train, actor_rates) -> dict:
     driver's build, its losses pass [train]'s checks, and at 1k they equal
     this process's steps on the same batches bit for bit.  Returns the
     fits' launches and their runs."""
+    import tempfile
+
     out, runs = {}, {}
     for b, length, iters in TRAINER_FITS:
         tag = f"B={b} S={length}"
         tokens = trainer_tokens(b, length, iters)
         t0 = time.time()
-        result = TorchTrainer(
-            trainer_loop,
-            train_loop_config={"batch": b, "seq": length, "iters": iters},
-            datasets={"train": rdata.from_numpy({"tokens": tokens},
-                                                parallelism=8)},
-            scaling_config=ScalingConfig(num_workers=1, use_gpu=True)).fit()
+        with tempfile.TemporaryDirectory() as root:
+            result = TorchTrainer(
+                trainer_loop,
+                train_loop_config={"batch": b, "seq": length,
+                                   "iters": iters},
+                datasets={"train": trainer_dataset(tokens, length, root)},
+                scaling_config=ScalingConfig(num_workers=1,
+                                             use_gpu=True)).fit()
         t_end = time.time()
         fit_s = t_end - t0
         if result.error is not None:
@@ -1862,8 +1910,11 @@ def phase_trainer(card, train, actor_rates) -> dict:
                    "after_loop_s": t_end - m["ended"],
                    "fit_s": fit_s, "peak_occupancy": m["peak_occupancy"]}
         local = train[tag]
+        source = ("from_numpy" if length == 1024 else
+                  f"{TRAINER_BLOCKS} .npy shards -> read_numpy -> "
+                  "BatchMapper")
         line = (f"[trainer] {card} | GPT-2 small {tag} through TorchTrainer "
-                f"(one worker, one GPU; int32 tokens through from_numpy -> "
+                f"(one worker, one GPU; int32 tokens through {source} -> "
                 f"iter_device_batches): {iters} steps {run['seconds']:.3f} s "
                 f"= {numbers['ms_per_step']:.1f} ms/step, {tokens_per_s:.0f} "
                 f"tokens/s, MFU {mfu:.4f} (reported {m['tokens_per_s']} "
@@ -1902,6 +1953,232 @@ def phase_trainer(card, train, actor_rates) -> dict:
         out[f"trainer {tag}"] = run["launches"]
         runs[tag] = run
     return out, runs
+
+
+# ---------------------------------------------------------------------------
+# [data]: the rest of Data on the card's machine (in the shared cluster)
+# ---------------------------------------------------------------------------
+# Streaming against eager at bench_streaming_data's configuration
+# (bench.py:1334-1430): 16 lazy read sources of 256 Ki rows x 2 int64
+# columns (4 MiB a block), map_batches(x * 3), a window of 3; the
+# dataset is 5.3 windows.  Then streaming ingest into the GPT-2 step:
+# [trainer]'s rows (trainer_tokens, default_rng(0)) for B=16 S=1024, one
+# warm-up and DATA_STEPS timed steps' worth, as DATA_SHARDS .npy shards
+# of 128 KiB (the store holds objects above 100 KiB; smaller ones travel
+# inline), read_streaming(numpy) under a store budget of
+# DATA_BUDGET_SHARDS shards' bytes (a window of 2: half the budget over
+# the first block's stored size, a little above its file's) ->
+# BatchMapper -> the window-scoped random_shuffle(seed=0) ->
+# iter_device_batches(16) on CUDA -> the steps in this process.  The
+# shuffle holds one window's blocks and their outputs in the store.
+DATA_WINDOW, DATA_BLOCKS, DATA_BLOCK_ROWS = 3, 16, 256 * 1024
+DATA_STEPS, DATA_SHARDS, DATA_BUDGET_SHARDS = 15, 8, 5
+
+
+def data_block_reader(path, columns):
+    """bench.py's _bench_block_reader: the path is the block's index; the
+    block is ids counting up and ones, int64."""
+    i = int(path)
+    base = i * DATA_BLOCK_ROWS
+    return {"id": np.arange(base, base + DATA_BLOCK_ROWS, dtype=np.int64),
+            "x": np.ones(DATA_BLOCK_ROWS, np.int64)}
+
+
+def times_three(batch):
+    return {"id": batch["id"], "x": batch["x"] * 3}
+
+
+def store_used() -> int:
+    return sum(r.store.used for r in ray_tpu_torch._head.raylets.values())
+
+
+def drain_ref_gc():
+    from ray_tpu_torch._private.worker import global_worker
+
+    global_worker._drain_ref_gc_queue()
+
+
+def consume_blocks(refs, base) -> tuple:
+    """(blocks, checksum of every id and x, peak store bytes above
+    ``base``) of a stream of block refs, each dropped once read."""
+    blocks = checksum = peak = 0
+    for ref in refs:
+        blk = ray_tpu_torch.get(ref, timeout=GET_S)
+        del ref
+        blocks += 1
+        checksum += int(blk["id"].sum()) + int(blk["x"].sum())
+        del blk
+        peak = max(peak, store_used() - base)
+    return blocks, checksum, peak
+
+
+def streaming_against_eager(card) -> dict:
+    def build():
+        return rdata.Dataset([("read", data_block_reader, str(i), None)
+                              for i in range(DATA_BLOCKS)]
+                             ).map_batches(times_three)
+
+    # Warm the workers (imports) so both legs measure steady state.
+    warm = build()._executor(window=DATA_WINDOW).materialize_refs()
+    ray_tpu_torch.wait(warm, num_returns=len(warm), timeout=GET_S)
+    del warm
+    drain_ref_gc()
+
+    ds = build()
+    base = store_used()
+    t0 = time.perf_counter()
+    ex = ds._executor(window=DATA_WINDOW, name="data_stream")
+    s_blocks, s_sum, s_peak = consume_blocks(ex.iter_block_refs(), base)
+    s_dt = time.perf_counter() - t0
+    inflight = ex.last_stream_stats["peak_in_flight"]
+    drain_ref_gc()
+
+    ds = build()
+    base = store_used()
+    t0 = time.perf_counter()
+    refs = ds._blocks
+    ray_tpu_torch.wait(refs, num_returns=len(refs), timeout=GET_S)
+    e_materialized = store_used() - base
+    e_blocks, e_sum, e_peak = consume_blocks(iter(refs), base)
+    e_dt = time.perf_counter() - t0
+    e_peak = max(e_peak, e_materialized)
+    del refs, ds
+    drain_ref_gc()
+
+    rows = DATA_BLOCKS * DATA_BLOCK_ROWS
+    want = rows * (rows - 1) // 2 + 3 * rows
+    if not s_blocks == e_blocks == DATA_BLOCKS or not s_sum == e_sum == want:
+        raise AssertionError(f"[data] streaming {s_blocks} blocks, checksum "
+                             f"{s_sum}; eager {e_blocks}, {e_sum}; want "
+                             f"{DATA_BLOCKS}, {want}")
+    if not inflight <= DATA_WINDOW:
+        raise AssertionError(f"[data] {inflight} blocks in flight, window "
+                             f"{DATA_WINDOW}")
+    if not s_peak < e_peak:
+        raise AssertionError(f"[data] streaming held {s_peak} B at its "
+                             f"peak, eager {e_peak} B")
+    out = {"stream_blocks_per_s": s_blocks / s_dt,
+           "eager_blocks_per_s": e_blocks / e_dt,
+           "stream_peak_bytes": s_peak, "eager_peak_bytes": e_peak,
+           "stream_peak_inflight": inflight,
+           "residency_ratio": s_peak / e_peak}
+    log(f"[data] {card} | bench_streaming_data's plan ({DATA_BLOCKS} read "
+        f"sources x {DATA_BLOCK_ROWS} rows x 2 int64 = 4 MiB a block, "
+        f"map_batches(x * 3), window {DATA_WINDOW}): streaming "
+        f"{out['stream_blocks_per_s']:.1f} blocks/s, peak resident "
+        f"{s_peak} B, peak in flight {inflight}; eager "
+        f"{out['eager_blocks_per_s']:.1f} blocks/s, peak resident {e_peak} "
+        f"B; residency ratio {out['residency_ratio']:.3f}; "
+        f"{s_blocks} blocks and checksum {s_sum} from both")
+    return out
+
+
+def row_hashes(rows, weights):
+    """One int64 a row: ids (< 2^16) times weights (< 2^20) summed over
+    1024 positions, exact; a torch tensor on the card or numpy."""
+    if isinstance(rows, torch.Tensor):
+        return (rows.long() * weights).sum(1)
+    return (rows.astype(np.int64) * weights).sum(1)
+
+
+class StorePeak:
+    """The store's peak bytes above ``base``, sampled every millisecond on
+    a thread of its own while the ``with`` block runs."""
+
+    def __init__(self, base):
+        self.base, self.peak = base, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+
+    def _sample(self):
+        while not self._stop.is_set():
+            self.peak = max(self.peak, store_used() - self.base)
+            time.sleep(0.001)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def streaming_ingest(card, train) -> dict:
+    import tempfile
+
+    b, length, iters = 16, 1024, DATA_STEPS
+    rows = trainer_tokens(b, length, iters)[:b * (iters + 1)]
+    weights = np.random.default_rng(SEED + 7).integers(
+        0, 2**20, size=length, dtype=np.int64)
+    on_card = torch.from_numpy(weights).to("cuda")
+    hashes = []
+    with tempfile.TemporaryDirectory() as root:
+        paths = write_shards(root, rows, DATA_SHARDS)
+        budget = DATA_BUDGET_SHARDS * os.path.getsize(paths[0])
+        sd = rdata.BatchMapper(as_tokens).transform(
+            rdata.read_streaming(paths, "numpy", store_budget=budget)
+        ).random_shuffle(seed=0)
+        drain_ref_gc()
+        with StorePeak(store_used()) as store:
+            stream = sd.iter_device_batches(b)
+
+            def batches():
+                for batch in stream:
+                    hashes.append(row_hashes(batch["tokens"], on_card))
+                    yield batch["tokens"]
+
+            t0 = time.perf_counter()
+            run = train_steps(b, length, iters, batches=batches())
+            wall = time.perf_counter() - t0
+            occupancy = stream.peak_occupancy
+            stream.close()
+    tag = f"B={b} S={length}"
+    tokens_per_s, mfu, _ = check_train(f"[data] {tag}", run, b, length,
+                                       iters)
+    got = np.sort(torch.cat(hashes).cpu().numpy())
+    want = np.sort(row_hashes(rows, weights))
+    if not np.array_equal(got, want):
+        raise AssertionError(f"[data] the steps consumed {len(got)} rows "
+                             f"that are not the {len(want)} written")
+    if not store.peak <= budget:
+        raise AssertionError(f"[data] store held {store.peak} B at its "
+                             f"peak, budget {budget} B")
+    local = train[tag]
+    local_rate = train_rates(local, b, length, local["iters"])[0]
+    numbers = {"tokens_per_s": tokens_per_s, "mfu": mfu,
+               "ms_per_step": run["seconds"] / iters * 1e3,
+               "train_tokens_per_s": local_rate, "wall_s": wall,
+               "build_s": run["build_s"], "warm_s": run["warm_s"],
+               "peak_store_bytes": store.peak, "budget_bytes": budget,
+               "prefetch_peak": occupancy}
+    log(f"[data] {card} | GPT-2 small {tag}, streaming ingest "
+        f"(read_streaming of {DATA_SHARDS} .npy shards under a {budget} B "
+        f"store budget -> BatchMapper -> random_shuffle(seed=0) -> "
+        f"iter_device_batches on CUDA): {iters} steps {run['seconds']:.3f} "
+        f"s = {numbers['ms_per_step']:.1f} ms/step, {tokens_per_s:.0f} "
+        f"tokens/s, MFU {mfu:.4f}; [train]'s in-memory "
+        f"{local_rate:.0f} tokens/s; the model's build "
+        f"{run['build_s']:.2f} s, the warm-up step {run['warm_s']:.2f} s; "
+        f"launches {run['launches']}; loss "
+        f"{' '.join(f'{x:.4f}' for x in run['losses'])}; rows consumed = "
+        f"rows written ({len(got)}, as a multiset); peak store "
+        f"{store.peak} B of {budget} B; prefetch peak occupancy "
+        f"{occupancy}")
+    note(f"data {tag}", **numbers)
+    return {f"data {tag}": run["launches"]}
+
+
+def phase_data(card, train) -> dict:
+    """The port's Data on the card's machine: streaming against eager at
+    bench_streaming_data's configuration (same blocks and checksum, the
+    in-flight window held, streaming's peak residency below eager's),
+    then streaming ingest into the GPT-2 step (12 launches of each kernel
+    a step, finite falling losses, the rows consumed are the rows
+    written, the store within its budget).  Returns the step's
+    launches."""
+    note("data", **streaming_against_eager(card))
+    return streaming_ingest(card, train)
 
 
 # ---------------------------------------------------------------------------
@@ -3024,7 +3301,7 @@ def phase_dqn_actor(card) -> dict:
 SERVE_ENGINE = {"max_slots": 4}
 SERVE_GPUS = 0.5
 SERVE_OPTIONS = {"num_gpus": SERVE_GPUS, "max_concurrency": 16}
-SERVE_ROUNDS = 2
+SERVE_ROUNDS = 1
 SERVE_CLIENTS = 8
 SERVE_SCALE_S = 60.0  # the bound of the scale-up and of the scale-down
 SERVE_AUTOSCALING = {"min_replicas": 1, "max_replicas": 2,
@@ -6161,82 +6438,17 @@ def timed(tag, phase, *args):
     return out
 
 
-def main():
-    t0 = time.perf_counter()
-    timed("device", phase_device)
-    card = card_line()
-    timed("build", phase_build)
-    timed("kernel", phase_kernel_grid)
-    timed("kernel-bwd", phase_kernel_bwd_grid)
-    fp32_launches, fp32_requests, fp32_want = timed("fp32",
-                                                     phase_fp32_slice)
-    timed("bf16", phase_bf16_slice)
-    serve_model = build_model("gpt2", GPT2_SMALL_FP32, seed=SEED)
-    serving = {}
-    serving.update(timed("spec", phase_spec, card, serve_model))
-    serving.update(timed("prefix", phase_prefix, card, serve_model))
-    launches, disagg_native = timed("disagg", phase_disagg, card,
-                                    serve_model)
-    serving.update(launches)
-    # The runtime's phases share one cluster on this machine (its workers
-    # are subprocesses), up from [runtime] to [dqn-actor]: [actor-train]
-    # needs [train]'s losses, [trainer] [train]'s and [actor-train]'s
-    # rates; [swap] runs after [swap-ref] because it perturbs the serving
-    # model's weights.
-    ray_tpu_torch.init(num_cpus=RUNTIME_CPUS)
-    try:
-        timed("runtime", phase_runtime, card)
-        serving.update(timed("serve", phase_serve, card, fp32_requests,
-                             fp32_want))
-        rlhf = timed("rlhf", phase_rlhf, card)
-        serving.update(timed("disagg-actor", phase_disagg_actor, card,
-                             serve_model, disagg_native))
-        serving.update(timed("swap-ref", phase_swap_ref, card, serve_model))
-        serving.update(timed("swap", phase_swap, card, serve_model))
-        del serve_model
-        torch.cuda.empty_cache()
-        train = timed("train", phase_train, card)
-        moe = timed("moe-train", phase_moe_train, card)
-        actor_train, actor_rates = timed("actor-train", phase_actor_train,
-                                         card, train)
-        trainer, trainer_runs = timed("trainer", phase_trainer, card, train,
-                                      actor_rates)
-        trainer.update(timed("zero", phase_zero, card, trainer_runs))
-        resnet = timed("resnet", phase_resnet, card)
-        actor_rl = {"ppo-actor": timed("ppo-actor", phase_ppo_actor,
-                                       card)["flash"],
-                    "impala-actor": timed("impala-actor", phase_impala_actor,
-                                          card)["flash"],
-                    "dqn-actor": timed("dqn-actor", phase_dqn_actor,
-                                       card)["flash"]}
-    finally:
-        ray_tpu_torch.shutdown()
-    # [dp2] in a cluster of its own: its elastic leg's boundary snapshot
-    # (GPT-2 small's parameters and Adam moments) needs a larger store.
-    ray_tpu_torch.init(num_cpus=RUNTIME_CPUS,
-                       object_store_memory=DP2_STORE_BYTES)
-    try:
-        trainer.update(timed("dp2", phase_dp2, card, trainer_runs))
-        layouts = timed("layouts", phase_layouts, card)
-    finally:
-        ray_tpu_torch.shutdown()
-    timed("train-fp32", phase_train_fp32)
-    llama, model = timed("llama-serve", phase_llama_serve, card)
-    model = llama_copy(model, dtype=torch.bfloat16)
-    llama["llama-train"] = timed("llama-train", phase_llama_train, card,
-                                 model)
-    del model
-    torch.cuda.empty_cache()
-    timed("llama-train-fp32", phase_train_fp32, "llama-train-fp32", "llama",
-          LLAMA_1B.items(), llama_loss_fn)
-    timing = timed("timing", phase_timing, card)
-    timing_bwd = timed("timing-bwd", phase_timing_bwd, card)
-    timed("timing-fp32", phase_timing_fp32, card)
+RL_PHASES_FLAG = "--rl-phases"
+
+
+def rl_phases(card) -> dict:
+    """The RL phases that need no cluster, in order: ``[ppo-parity]`` to
+    ``[cli]``.  Returns each path's flash launches."""
     timed("ppo-parity", phase_ppo_parity)
-    ppo = timed("ppo", phase_ppo, card)
+    rl = {"ppo": timed("ppo", phase_ppo, card)["flash"]}
     timed("envs", phase_envs)
-    rl = {"ppo-minatar": timed("ppo-minatar", phase_ppo_minatar,
-                               card)["flash"]}
+    rl["ppo-minatar"] = timed("ppo-minatar", phase_ppo_minatar,
+                              card)["flash"]
     # IMPALA's gate is close: on an H100 seeds 0 and 1 end at 1.49 against
     # the floor of 1.5.  cuDNN documents its weight-gradient algorithms 0
     # and 3 as non-deterministic (atomic adds), with which a rerun need not
@@ -6264,14 +6476,168 @@ def main():
         if cli["proc"].poll() is None:
             cli["proc"].kill()
             cli["proc"].wait()
+    return rl
+
+
+def rl_phases_main(out_dir) -> None:
+    """``chip_smoke.py --rl-phases <dir>``: ``rl_phases`` in a process of
+    its own, with ``phase_device``'s settings; its launches and record go
+    to ``<dir>/result.json``."""
+    phase_device()
+    rl = rl_phases(card_line())
+    with open(os.path.join(out_dir, "result.json"), "w") as f:
+        json.dump({"rl": rl, "record": RECORD}, f)
+
+
+def start_rl_phases() -> dict:
+    """Starts ``rl_phases`` in a child process on the card, in a session
+    of its own (so that ``stop_rl_phases`` ends the CLI it starts too),
+    its standard output in a file until ``join_rl_phases`` prints it.
+    The RL phases seed every draw and need no cluster; run beside the
+    cluster's phases they share the card and the host, which moves only
+    the times of both."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="rttp_rl_")
+    out = open(os.path.join(tmp, "log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), RL_PHASES_FLAG, tmp],
+        stdout=out, cwd=os.path.dirname(os.path.abspath(__file__)),
+        start_new_session=True)
+    return {"proc": proc, "tmp": tmp, "out": out, "t0": time.perf_counter()}
+
+
+def join_rl_phases(child) -> dict:
+    """Waits for the RL phases' process, prints its log, takes its record
+    lines and returns its launches; raises if it failed."""
+    t0 = time.perf_counter()
+    rc = child["proc"].wait()
+    waited = time.perf_counter() - t0
+    child["out"].close()
+    with open(os.path.join(child["tmp"], "log")) as f:
+        sys.stdout.write(f.read())
+    sys.stdout.flush()
+    if rc != 0:
+        raise AssertionError(f"[rl-phases] the RL phases' process exited "
+                             f"{rc}")
+    with open(os.path.join(child["tmp"], "result.json")) as f:
+        result = json.load(f)
+    for tag, numbers in result["record"].items():
+        note(tag, **numbers)
+    seconds = time.perf_counter() - child["t0"]
+    note("rl-phases", s=seconds, waited_s=waited)
+    log(f"[rl-phases] the RL phases ran in a process of their own beside "
+        f"the cluster's phases: {seconds:.1f} s, of which this process "
+        f"waited {waited:.1f} s")
+    return result["rl"]
+
+
+def stop_rl_phases(child) -> None:
+    """Ends the RL phases' process and what it started, if still running,
+    and removes its files."""
+    import shutil
+    import signal
+
+    if child["proc"].poll() is None:
+        os.killpg(child["proc"].pid, signal.SIGKILL)
+        child["proc"].wait()
+    child["out"].close()
+    shutil.rmtree(child["tmp"], ignore_errors=True)
+
+
+def main():
+    t0 = time.perf_counter()
+    timed("device", phase_device)
+    card = card_line()
+    timed("build", phase_build)
+    timed("kernel", phase_kernel_grid)
+    timed("kernel-bwd", phase_kernel_bwd_grid)
+    fp32_launches, fp32_requests, fp32_want = timed("fp32",
+                                                     phase_fp32_slice)
+    timed("bf16", phase_bf16_slice)
+    serve_model = build_model("gpt2", GPT2_SMALL_FP32, seed=SEED)
+    serving = {}
+    serving.update(timed("spec", phase_spec, card, serve_model))
+    serving.update(timed("prefix", phase_prefix, card, serve_model))
+    launches, disagg_native = timed("disagg", phase_disagg, card,
+                                    serve_model)
+    serving.update(launches)
+    # The RL phases that need no cluster run in a process of their own
+    # beside the cluster's phases up to [swap], whose times are readings
+    # only; they are joined before [train], so that the training phases,
+    # the Llama phases and the kernels' timings have the card to
+    # themselves.
+    child = start_rl_phases()
+    try:
+        # The runtime's phases share one cluster on this machine (its
+        # workers are subprocesses), up from [runtime] to [resnet]:
+        # [actor-train] needs [train]'s losses, [trainer] [train]'s and
+        # [actor-train]'s rates; [swap] runs after [swap-ref] because it
+        # perturbs the serving model's weights.
+        ray_tpu_torch.init(num_cpus=RUNTIME_CPUS)
+        try:
+            timed("runtime", phase_runtime, card)
+            actor_rl = {
+                "ppo-actor": timed("ppo-actor", phase_ppo_actor,
+                                   card)["flash"],
+                "impala-actor": timed("impala-actor", phase_impala_actor,
+                                      card)["flash"],
+                "dqn-actor": timed("dqn-actor", phase_dqn_actor,
+                                   card)["flash"]}
+            serving.update(timed("serve", phase_serve, card, fp32_requests,
+                                 fp32_want))
+            rlhf = timed("rlhf", phase_rlhf, card)
+            serving.update(timed("disagg-actor", phase_disagg_actor, card,
+                                 serve_model, disagg_native))
+            serving.update(timed("swap-ref", phase_swap_ref, card,
+                                 serve_model))
+            serving.update(timed("swap", phase_swap, card, serve_model))
+            del serve_model
+            torch.cuda.empty_cache()
+            rl = join_rl_phases(child)
+            train = timed("train", phase_train, card)
+            moe = timed("moe-train", phase_moe_train, card)
+            actor_train, actor_rates = timed("actor-train",
+                                             phase_actor_train, card, train)
+            trainer, trainer_runs = timed("trainer", phase_trainer, card,
+                                          train, actor_rates)
+            data = timed("data", phase_data, card, train)
+            trainer.update(timed("zero", phase_zero, card, trainer_runs))
+            resnet = timed("resnet", phase_resnet, card)
+        finally:
+            ray_tpu_torch.shutdown()
+    finally:
+        stop_rl_phases(child)
+    # [dp2] in a cluster of its own: its elastic leg's boundary snapshot
+    # (GPT-2 small's parameters and Adam moments) needs a larger store.
+    ray_tpu_torch.init(num_cpus=RUNTIME_CPUS,
+                       object_store_memory=DP2_STORE_BYTES)
+    try:
+        trainer.update(timed("dp2", phase_dp2, card, trainer_runs))
+        layouts = timed("layouts", phase_layouts, card)
+    finally:
+        ray_tpu_torch.shutdown()
+    timed("train-fp32", phase_train_fp32)
+    llama, model = timed("llama-serve", phase_llama_serve, card)
+    model = llama_copy(model, dtype=torch.bfloat16)
+    llama["llama-train"] = timed("llama-train", phase_llama_train, card,
+                                 model)
+    del model
+    torch.cuda.empty_cache()
+    timed("llama-train-fp32", phase_train_fp32, "llama-train-fp32", "llama",
+          LLAMA_1B.items(), llama_loss_fn)
+    timing = timed("timing", phase_timing, card)
+    timing_bwd = timed("timing-bwd", phase_timing_bwd, card)
+    timed("timing-fp32", phase_timing_fp32, card)
     note("done", s=time.perf_counter() - t0)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     by_path = {"fp32": {"flash_fwd": fp32_launches}, **serving, **rlhf,
                **{f"train {tag}": run["launches"]
                   for tag, run in train.items()},
-               **moe, **actor_train, **trainer, **resnet, **layouts,
+               **moe, **actor_train, **trainer, **data, **resnet,
+               **layouts,
                **actor_rl,
-               **llama, "ppo": ppo["flash"], **rl}
+               **llama, **rl}
     # dq's and dkv's top-level fields are those of the first training
     # shape; the forward's are the serving shape's.
     first = next(iter(timing_bwd["flash_dq"]))
@@ -6303,4 +6669,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [RL_PHASES_FLAG]:
+        rl_phases_main(sys.argv[2])
+    else:
+        main()

@@ -1371,17 +1371,26 @@ class Head:
         pg = PlacementGroupInfo(payload["pg_id"], payload["bundles"],
                                 payload["strategy"], payload.get("name", ""))
         with self._lock:
+            # placement_group() sends this from a thread of its own, so a
+            # pg_ready for the same group can come first and wait here.
+            waiters = self._pg_waiters.pop(pg.pg_id, [])
             if not self.scheduler.pg_feasible(pg):
                 pg.state = "INFEASIBLE"
                 self.scheduler.placement_groups[pg.pg_id] = pg
                 self.gcs.publish("PG", ("INFEASIBLE", pg.pg_id))
-                reply(error=exc.PlacementGroupSchedulingError(
-                    f"placement group infeasible: {payload['bundles']}"))
+                error = exc.PlacementGroupSchedulingError(
+                    f"placement group infeasible: {payload['bundles']}")
+                for cb in waiters:
+                    cb(error=error)
+                reply(error=error)
                 return
             if self.scheduler.create_placement_group(pg):
                 self.gcs.publish("PG", ("CREATED", pg.pg_id))
+                for cb in waiters:
+                    cb("CREATED")
                 reply("CREATED")
             else:
+                self._pg_waiters[pg.pg_id].extend(waiters)
                 self._pending_pgs.append(pg)
                 self._pg_waiters[pg.pg_id].append(reply)
 

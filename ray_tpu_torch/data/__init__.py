@@ -1,20 +1,35 @@
-"""Distributed datasets of the port, the Data→Train ingest subset
-(counterpart of ``ray_tpu/data``; reference: python/ray/data/).
+"""Distributed datasets of the port (counterpart of ``ray_tpu/data``;
+reference: python/ray/data/).
 
-``from_items``, ``range`` and ``from_numpy`` put blocks (dicts of numpy
-columns) into the object store; ``Dataset`` maps, splits, counts and
-iterates them, and ``iter_device_batches`` hands them to the card through
-``DevicePrefetcher``.  The file readers, ``read_streaming`` and
-``StreamingDataset``, grouping and the preprocessors raise, naming
-ROADMAP Queue 1 item 1c.
+Blocks are dicts of numpy columns (``data/block.py``), so the numpy,
+CSV, JSON, text, binary and TFRecord formats, sort, groupby, the
+shuffles and the streaming executor run where neither pyarrow, pandas
+nor PIL is installed (the card's machine); the parquet and image formats
+and the pandas and pyarrow batch formats import their package when used,
+and raise an ImportError naming it where it is absent.
+``iter_device_batches`` hands batches to the card through
+``DevicePrefetcher``.
 """
 from typing import Any, Dict, List, Union
 
 import numpy as np
 
-from ray_tpu_torch.data.block import not_ported
 from ray_tpu_torch.data.dataset import Dataset  # noqa: F401
+from ray_tpu_torch.data.datasource import register_datasource  # noqa: F401
+from ray_tpu_torch.data.grouped import GroupedData  # noqa: F401
 from ray_tpu_torch.data.prefetch import DevicePrefetcher  # noqa: F401
+from ray_tpu_torch.data.preprocessors import (  # noqa: F401
+    BatchMapper,
+    Preprocessor,
+    StandardScaler,
+)
+from ray_tpu_torch.data.streaming import StreamingDataset  # noqa: F401
+
+
+def read_streaming(paths, fmt: str, columns=None, **kw) -> "StreamingDataset":
+    """Bounded-memory streaming read (reference: the streaming executor
+    path, data/_internal/execution/streaming_executor.py:31)."""
+    return StreamingDataset.read(paths, fmt, columns, **kw)
 
 
 def from_items(items: List[Any], parallelism: int = 8) -> Dataset:
@@ -32,14 +47,38 @@ def from_numpy(arrays: Union[np.ndarray, Dict[str, np.ndarray]],
     return Dataset.from_numpy(arrays, parallelism)
 
 
-read_parquet = not_ported("ray_tpu_torch.data.read_parquet")
-read_csv = not_ported("ray_tpu_torch.data.read_csv")
-read_json = not_ported("ray_tpu_torch.data.read_json")
-read_numpy = not_ported("ray_tpu_torch.data.read_numpy")
-read_text = not_ported("ray_tpu_torch.data.read_text")
-read_binary_files = not_ported("ray_tpu_torch.data.read_binary_files")
-read_images = not_ported("ray_tpu_torch.data.read_images")
-read_tfrecords = not_ported("ray_tpu_torch.data.read_tfrecords")
-read_datasource = not_ported("ray_tpu_torch.data.read_datasource")
-read_streaming = not_ported("ray_tpu_torch.data.read_streaming")
-register_datasource = not_ported("ray_tpu_torch.data.register_datasource")
+def read_parquet(paths, columns=None) -> Dataset:
+    return Dataset.read(paths, "parquet", columns)
+
+
+def read_csv(paths) -> Dataset:
+    return Dataset.read(paths, "csv")
+
+
+def read_json(paths) -> Dataset:
+    return Dataset.read(paths, "json")
+
+
+def read_numpy(paths) -> Dataset:
+    return Dataset.read(paths, "numpy")
+
+
+def read_text(paths) -> Dataset:
+    return Dataset.read(paths, "text")
+
+
+def read_binary_files(paths) -> Dataset:
+    return Dataset.read(paths, "binary")
+
+
+def read_images(paths) -> Dataset:
+    return Dataset.read(paths, "images")
+
+
+def read_tfrecords(paths, columns=None) -> Dataset:
+    return Dataset.read(paths, "tfrecord", columns)
+
+
+def read_datasource(fmt: str, paths, columns=None) -> Dataset:
+    """Read through a registered plugin format (register_datasource)."""
+    return Dataset.read(paths, fmt, columns)

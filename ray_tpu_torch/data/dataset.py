@@ -2,28 +2,25 @@
 ``ray_tpu/data/dataset.py``; reference: python/ray/data/dataset.py:156,
 _internal/plan.py).
 
-``map_batches`` is a LAZY plan op (``data/execution.py``): nothing runs
-at call time, and the consuming iterators (``iter_batches``,
-``iter_device_batches``, ``count``, ``take``) drive the plan per block
-through a bounded :class:`ray_tpu_torch.parallel.flow.RefStream`.
-``split`` materializes the plan first: it is a barrier by nature.
+The per-block transforms (``map_batches``/``map``/``filter``) are LAZY
+plan ops (``data/execution.py``): nothing runs at call time, and the
+consuming iterators (``iter_batches``/``iter_device_batches``/``count``/
+``take``) drive the plan per block through a bounded
+:class:`ray_tpu_torch.parallel.flow.RefStream` — read→map→consume
+overlap with peak resident blocks capped by the window.  Whole-dataset
+operators (repartition/sort/split/zip/writes) materialize the plan
+first: they are barriers by nature.
 
-The port's Dataset is the Data->Train ingest subset: ``from_items``,
-``range`` and ``from_numpy``; ``map_batches`` in the numpy format;
-``split``, ``count``, ``take``, ``iter_rows``, ``iter_batches``,
-``iter_device_batches`` and ``materialize``.  Blocks are dicts of numpy
-columns (``data/block.py``).  The other operators (``map``, ``filter``,
-``repartition``, ``random_shuffle``, ``sort``, ``groupby``, ``zip``,
-``schema``, ``streaming``, the writers, ``take_all``, ``num_blocks``,
-``stats``) and the pyarrow and pandas batch formats raise, naming
-ROADMAP Queue 1 item 1c.
+Blocks are dicts of numpy columns (``data/block.py``); ``schema()`` is
+``{name: (dtype, inner shape)}`` where the reference returns a
+``pyarrow.Schema``.
 
-Copied from ``ray_tpu/data/dataset.py`` (the JAX package), cut to the
-ingest subset.
+Copied from ``ray_tpu/data/dataset.py`` (the JAX package).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, List, Optional
+import os
+from typing import Any, Callable, Dict, Iterator, List, Optional, Union
 
 import numpy as np
 
@@ -32,13 +29,31 @@ from ray_tpu_torch.data import execution
 from ray_tpu_torch.data.block import (
     block_from_items,
     block_from_numpy,
+    block_num_rows,
+    block_schema,
     block_slice,
     block_to_numpy,
     block_to_rows,
-    check_batch_format,
     concat_blocks,
-    not_ported,
+    format_batch,
 )
+
+
+@ray_tpu_torch.remote
+def _count_block(blk):
+    return block_num_rows(blk)
+
+
+@ray_tpu_torch.remote
+def _write_block(blk, path: str, fmt: str) -> str:
+    from ray_tpu_torch.data.datasource import WRITERS
+
+    if fmt not in WRITERS:
+        raise ValueError(f"bad write format {fmt!r}")
+    # Task-side: the writing node may not be the driver's host.
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    WRITERS[fmt](blk, path)
+    return path
 
 
 @ray_tpu_torch.remote
@@ -51,9 +66,19 @@ def _slice_block(blk, start, end):
     return block_slice(blk, start, end)
 
 
+@ray_tpu_torch.remote
+def _concat_slices(ranges, *blks):
+    """Concatenate [start, end) slices of the given blocks (the
+    repartition reduce side: one output block's pieces only)."""
+    parts = [block_slice(b, s, e) for b, (s, e) in zip(blks, ranges)]
+    return concat_blocks(parts) if parts else block_from_items([])
+
+
 class Dataset:
-    """``sources`` holds object refs to materialized blocks; ``plan``
-    holds the per-block ops not yet applied."""
+    """``sources`` holds object refs to materialized blocks and/or lazy
+    ``("read", reader, path, columns)`` descriptors; ``plan`` holds the
+    per-block ops not yet applied.  ``_blocks`` materializes the plan
+    eagerly and caches the resulting refs."""
 
     def __init__(self, block_refs: List[Any],
                  plan: Optional[List[execution.PlanOp]] = None):
@@ -62,9 +87,10 @@ class Dataset:
 
     @property
     def _blocks(self) -> List[Any]:
-        """Materialized block refs: collapses pending plan ops into
-        store-resident blocks."""
-        if self._plan:
+        """Materialized block refs: collapses lazy reads + pending plan
+        ops into store-resident blocks."""
+        if self._plan or any(execution.is_read_source(s)
+                             for s in self._sources):
             self._sources = execution.PlanExecutor(
                 self._sources, self._plan).materialize_refs()
             self._plan = []
@@ -102,33 +128,90 @@ class Dataset:
                   for a, b in zip(bounds, bounds[1:]) if b > a]
         return Dataset(ray_tpu_torch.put_many(blocks))
 
+    @staticmethod
+    def read(paths: Union[str, List[str]], fmt: str,
+             columns=None) -> "Dataset":
+        from ray_tpu_torch.data.datasource import (
+            expand_paths,
+            resolve_datasource,
+        )
+
+        reader = resolve_datasource(fmt)
+        # Lazy read sources: no task runs until a consumer drives the
+        # plan, and then the read fuses with the chained per-block ops.
+        return Dataset([("read", reader, p, columns)
+                        for p in expand_paths(paths)])
+
     # ---------------- transforms (lazy plan ops) ----------------
-    def map_batches(self, fn, batch_format: str = "numpy",
+    def _with_op(self, op: execution.PlanOp) -> "Dataset":
+        return Dataset(self._sources, self._plan + [op])
+
+    def map_batches(self, fn: Callable, batch_format: str = "numpy",
                     num_gpus: float = 0) -> "Dataset":
-        """``fn`` over every block's batch.  ``num_gpus`` is the share of
-        a card each block's task asks for (0: a CPU task, whose worker
-        sees no GPU)."""
-        check_batch_format(batch_format)
+        """``fn`` over every block's batch in ``batch_format`` (numpy,
+        pandas or pyarrow).  ``num_gpus`` is the share of a card each
+        block's task asks for (0: a CPU task, whose worker sees no
+        GPU)."""
+        if batch_format not in ("numpy", "pandas", "pyarrow"):
+            raise ValueError(f"bad batch_format {batch_format!r}")
         op = ("map_batches", fn, batch_format)
         if num_gpus:
             op += (num_gpus,)
-        return Dataset(self._sources, self._plan + [op])
+        return self._with_op(op)
 
-    map = not_ported("Dataset.map")
-    filter = not_ported("Dataset.filter")
-    repartition = not_ported("Dataset.repartition")
-    random_shuffle = not_ported("Dataset.random_shuffle")
-    sort = not_ported("Dataset.sort")
-    groupby = not_ported("Dataset.groupby")
-    zip = not_ported("Dataset.zip")
-    schema = not_ported("Dataset.schema")
-    streaming = not_ported("Dataset.streaming")
-    write_parquet = not_ported("Dataset.write_parquet")
-    write_csv = not_ported("Dataset.write_csv")
-    write_json = not_ported("Dataset.write_json")
-    take_all = not_ported("Dataset.take_all")
-    num_blocks = not_ported("Dataset.num_blocks")
-    stats = not_ported("Dataset.stats")
+    def map(self, fn: Callable) -> "Dataset":
+        def row_fn(batch: dict):
+            rows = _batch_to_rows(batch)
+            out = [fn(r) for r in rows]
+            return _rows_to_batch(out)
+
+        return self.map_batches(row_fn, batch_format="numpy")
+
+    def filter(self, fn: Callable) -> "Dataset":
+        return self._with_op(("filter", fn, None))
+
+    def repartition(self, num_blocks: int) -> "Dataset":
+        """Block-parallel repartition via a slice plan: each output block
+        concatenates only the input slices it needs — no task ever holds
+        the whole dataset."""
+        blocks = self._blocks  # barrier: slice plan needs all lengths
+        lengths = ray_tpu_torch.get([_count_block.remote(b) for b in blocks])
+        total = int(sum(lengths))
+        starts = np.cumsum([0] + lengths)  # input block i covers
+        bounds = np.linspace(0, total, num_blocks + 1, dtype=int)
+        out = []
+        for a, b in zip(bounds, bounds[1:]):
+            pieces = []
+            for i, (s, ln) in enumerate(zip(starts, lengths)):
+                lo, hi = max(a, s), min(b, s + ln)
+                if hi > lo:
+                    pieces.append((blocks[i], int(lo - s), int(hi - s)))
+            if pieces:
+                out.append(_concat_slices.remote(
+                    [p[1:] for p in pieces], *[p[0] for p in pieces]))
+            else:
+                # More output blocks than rows: an empty output must keep
+                # the dataset's SCHEMA (a 0-row slice of a real block).
+                out.append(_slice_block.remote(blocks[0], 0, 0))
+        return Dataset(out)
+
+    def random_shuffle(self, seed: Optional[int] = None) -> "Dataset":
+        """Block-local shuffle after a repartition into as many blocks.
+        Every block derives its rng from ``(seed, block_index)`` through a
+        SeedSequence spawn, so the blocks' permutations are decorrelated
+        and the same seed gives the JAX package's order bit for bit;
+        ``seed=None`` draws fresh OS entropy per call."""
+        entropy = np.random.SeedSequence(seed).entropy
+
+        def shuf(batch: dict, block_index: int):
+            rng = np.random.default_rng(np.random.SeedSequence(
+                entropy=entropy, spawn_key=(int(block_index),)))
+            n = len(next(iter(batch.values()))) if batch else 0
+            idx = rng.permutation(n)
+            return {k: v[idx] for k, v in batch.items()}
+
+        out = self.repartition(self.num_blocks())
+        return out._with_op(("map_batches_indexed", shuf, "numpy"))
 
     def split(self, n: int, equal: bool = True) -> List["Dataset"]:
         """Per-worker shards (reference: Dataset.split with locality hints →
@@ -142,6 +225,28 @@ class Dataset:
             end = (i + 1) * per if (equal or i < n - 1) else total
             out.append(Dataset([_slice_block.remote(whole, start, end)]))
         return out
+
+    def sort(self, key: str, descending: bool = False) -> "Dataset":
+        """Distributed sample-sort (reference: Dataset.sort →
+        _internal/sort.py two-phase range partition)."""
+        from ray_tpu_torch.data.grouped import sort_impl
+
+        return Dataset(sort_impl(self._blocks, key, descending))
+
+    def groupby(self, key: str, num_partitions: Optional[int] = None):
+        """Hash-shuffle groupby (reference: Dataset.groupby →
+        grouped_data.py)."""
+        from ray_tpu_torch.data.grouped import GroupedData
+
+        return GroupedData(self, key, num_partitions)
+
+    def zip(self, other: "Dataset") -> "Dataset":
+        a = concat_blocks(ray_tpu_torch.get(self._blocks))
+        b = concat_blocks(ray_tpu_torch.get(other._blocks))
+        if block_num_rows(a) != block_num_rows(b):
+            raise ValueError(f"zip needs equal row counts, got "
+                             f"{block_num_rows(a)} and {block_num_rows(b)}")
+        return Dataset([ray_tpu_torch.put({**a, **b})])
 
     # ---------------- consumption (drives the plan, windowed) -----------
     def count(self, window: Optional[int] = None) -> int:
@@ -165,6 +270,21 @@ class Dataset:
             refs.close()  # early exit: release the in-flight window
         return out
 
+    def take_all(self, window: Optional[int] = None) -> List[dict]:
+        return list(self.iter_rows(window=window))
+
+    def schema(self):
+        """``{name: (dtype, inner shape)}`` of the first block (plan ops
+        keep the columns even on 0-row outputs)."""
+        ex = execution.PlanExecutor(self._sources[:1], self._plan,
+                                    window=1, name="schema")
+        for ref in ex.iter_block_refs():
+            return block_schema(ray_tpu_torch.get(ref))
+        raise ValueError("schema() on an empty dataset")
+
+    def num_blocks(self) -> int:
+        return len(self._sources)
+
     def iter_rows(self, window: Optional[int] = None) -> Iterator[dict]:
         for ref in self._executor(window, name="rows").iter_block_refs():
             blk = ray_tpu_torch.get(ref)
@@ -173,29 +293,12 @@ class Dataset:
 
     def iter_batches(self, batch_size: int = 256, batch_format: str = "numpy",
                      drop_last: bool = False,
-                     window: Optional[int] = None
-                     ) -> Iterator[Dict[str, np.ndarray]]:
+                     window: Optional[int] = None) -> Iterator[Any]:
         """Stream batches; the plan executes per-block with at most
         ``window`` blocks in flight (read→map→consume overlap)."""
-        check_batch_format(batch_format)
-        carry: Optional[dict] = None
-        for ref in self._executor(window, name="batches").iter_block_refs():
-            blk = ray_tpu_torch.get(ref)
-            del ref  # release the store copy once rows are in-process
-            batch = block_to_numpy(blk)
-            del blk
-            if carry is not None:
-                batch = {k: np.concatenate([carry[k], batch[k]])
-                         for k in batch}
-            n = len(next(iter(batch.values()))) if batch else 0
-            pos = 0
-            while n - pos >= batch_size:
-                yield {k: v[pos:pos + batch_size] for k, v in batch.items()}
-                pos += batch_size
-            carry = {k: v[pos:] for k, v in batch.items()} if pos < n else None
-        if carry is not None and not drop_last and \
-                len(next(iter(carry.values()))) > 0:
-            yield carry
+        return _batches(self._executor(window, name="batches"
+                                       ).iter_block_refs(),
+                        batch_size, batch_format, drop_last)
 
     def iter_device_batches(self, batch_size: int = 256, device=None,
                             prefetch: int = 2,
@@ -213,6 +316,92 @@ class Dataset:
             device=device, prefetch=prefetch)
 
     def materialize(self) -> "Dataset":
-        blocks = self._blocks  # collapse pending plan ops
+        blocks = self._blocks  # collapse lazy reads + pending plan ops
         ray_tpu_torch.wait(blocks, num_returns=len(blocks))
         return self
+
+    def streaming(self, store_budget: Optional[int] = None,
+                  max_inflight_blocks: Optional[int] = None):
+        """Switch to the bounded-memory streaming executor
+        (ray_tpu_torch.data.streaming.StreamingDataset).  The pending plan
+        carries over verbatim — ops are the same tuples both engines
+        execute."""
+        from ray_tpu_torch.data.streaming import StreamingDataset
+
+        sources = [s if execution.is_read_source(s) else (lambda r=s: r)
+                   for s in self._sources]
+        return StreamingDataset(sources, stages=list(self._plan),
+                                store_budget=store_budget,
+                                max_inflight_blocks=max_inflight_blocks)
+
+    # ---------------- writes (reference: Dataset.write_parquet/csv/json,
+    # python/ray/data/dataset.py + file_datasink.py: one file per block,
+    # written by the task that holds the block) ----------------
+    def _write(self, path: str, fmt: str, ext: str, mode: str) -> List[str]:
+        import glob as glob_mod
+
+        existing = glob_mod.glob(os.path.join(path, f"part-*.{ext}"))
+        if existing:
+            if mode == "overwrite":
+                for p in existing:
+                    os.remove(p)  # a shorter write must not leave a stale
+                    # tail that doubles rows on read-back
+            else:
+                raise FileExistsError(
+                    f"{path} already holds {len(existing)} part files; "
+                    "pass mode='overwrite' to replace them")
+        refs = [
+            _write_block.remote(
+                b, os.path.join(path, f"part-{i:05d}.{ext}"), fmt)
+            for i, b in enumerate(self._blocks)
+        ]
+        return ray_tpu_torch.get(refs)
+
+    def write_parquet(self, path: str, mode: str = "error") -> List[str]:
+        return self._write(path, "parquet", "parquet", mode)
+
+    def write_csv(self, path: str, mode: str = "error") -> List[str]:
+        return self._write(path, "csv", "csv", mode)
+
+    def write_json(self, path: str, mode: str = "error") -> List[str]:
+        return self._write(path, "json", "json", mode)
+
+    def stats(self) -> dict:
+        return {"num_blocks": len(self._sources), "count": self.count()}
+
+
+def _batches(block_refs, batch_size: int, batch_format: str,
+             drop_last: bool) -> Iterator[Any]:
+    """Re-cut a stream of block refs into batches of ``batch_size`` rows,
+    carrying the remainder across blocks; each ref is dropped once its
+    rows are in this process, releasing its store copy."""
+    carry: Optional[dict] = None
+    for ref in block_refs:
+        blk = ray_tpu_torch.get(ref)
+        del ref
+        batch = block_to_numpy(blk)
+        del blk
+        if carry is not None:
+            batch = {k: np.concatenate([carry[k], batch[k]]) for k in batch}
+        n = len(next(iter(batch.values()))) if batch else 0
+        pos = 0
+        while n - pos >= batch_size:
+            yield format_batch({k: v[pos:pos + batch_size]
+                                for k, v in batch.items()}, batch_format)
+            pos += batch_size
+        carry = {k: v[pos:] for k, v in batch.items()} if pos < n else None
+    if carry is not None and not drop_last and \
+            len(next(iter(carry.values()))) > 0:
+        yield format_batch(carry, batch_format)
+
+
+def _batch_to_rows(batch: Dict[str, np.ndarray]) -> List[dict]:
+    keys = list(batch)
+    n = len(batch[keys[0]]) if keys else 0
+    return [{k: batch[k][i] for k in keys} for i in range(n)]
+
+
+def _rows_to_batch(rows: List[Any]) -> Dict[str, np.ndarray]:
+    if rows and isinstance(rows[0], dict):
+        return {k: np.asarray([r[k] for r in rows]) for k in rows[0]}
+    return {"item": np.asarray(rows)}

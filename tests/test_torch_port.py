@@ -215,6 +215,8 @@ def test_chip_smokes_remote_code_pickles_by_value():
                     chip_smoke.resnet_loop, chip_smoke.resnet_model,
                     chip_smoke.layouts_loop,
                     chip_smoke.learner_weights,
+                    chip_smoke.data_block_reader, chip_smoke.times_three,
+                    chip_smoke.as_tokens,
                     *chip_smoke.elastic_problem()):
             assert cloudpickle.loads(cloudpickle.dumps(obj)).__name__ == \
                 obj.__name__

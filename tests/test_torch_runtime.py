@@ -8,6 +8,7 @@ the CPU with a declared ``num_gpus=2``.  Every ``get`` has a timeout."""
 import importlib
 import os
 import sys
+import threading
 import time
 
 import numpy as np
@@ -213,6 +214,37 @@ def test_put_many_and_get_many(rt):
     got = rt.get_many(refs, timeout=T)
     assert all(np.array_equal(a, b) for a, b in zip(got[:5], values[:5]))
     assert got[5:] == ["s", 7]
+
+
+@port_only
+def test_a_pg_ready_that_reaches_the_head_first_sees_the_group_created(rt):
+    """``placement_group()`` sends its ``create_pg`` from a thread of its
+    own, so the caller's ``pg_ready`` can reach the head first.  When the
+    group is then created at once, the waiting ``pg_ready`` returns (the
+    JAX package's head left it to its timeout: the 120 s "placement group
+    not ready" a loaded suite run met in MeshGroup's gangs)."""
+    ids = importlib.import_module(rt.__name__ + "._private.ids")
+    worker = importlib.import_module(rt.__name__ + "._private.worker")
+    transport = worker.global_worker.transport
+    pg_id = ids.PlacementGroupID.from_random()
+    got = {}
+
+    def ready():
+        t0 = time.monotonic()
+        got["reply"] = transport.request("pg_ready",
+                                         {"pg_id": pg_id, "timeout": T})
+        got["s"] = time.monotonic() - t0
+
+    thread = threading.Thread(target=ready)
+    thread.start()
+    time.sleep(0.5)  # the pg_ready now waits at the head
+    assert transport.request("create_pg", {
+        "pg_id": pg_id, "bundles": [{"CPU": 1}], "strategy": "PACK",
+        "name": ""}) == "CREATED"
+    thread.join(timeout=T)
+    assert not thread.is_alive()
+    assert got["reply"] == "CREATED" and got["s"] < 10
+    transport.request("remove_pg", {"pg_id": pg_id})
 
 
 def test_placement_group_and_cluster_resources(rt):
