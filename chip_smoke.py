@@ -97,7 +97,23 @@ three main paths with random weights from a seed:
   ``data`` (DDP), ``expert`` (the expert-parallel MoE's all-to-alls) and
   ``sequence`` (``ring_attention``) layouts, each loss and gradient held
   to one rank's step here, and ring and Ulysses attention against full
-  attention on the JAX tests' shapes;
+  attention on the JAX tests' shapes; then the two dryrun legs that
+  need the pipelines (``__graft_entry__.py``'s ``_dryrun_pipeline_mesh``
+  and ``_dryrun_llama_3d``): GPT-2 tiny in 2 stages and Llama tiny in 2
+  stages x 2 virtual chunks with ZeRO, each stage a 2-rank gang (the
+  reference's ``spmd_devices=2``), held to the chunks composed here on
+  the fp32 wire, and the int8 wire within 0.05 with >= 3x fewer bytes;
+  they run in a process and a cluster of their own beside the serving
+  phases (``chip_smoke.py --pipeline-legs <dir>``, joined with the RL
+  phases' process before ``[train]``);
+- ``[pipeline]`` (after ``[resnet]`` in the shared cluster):
+  ``bench_gpt2_pipeline`` at its full configuration, GPT-2 small in fp32
+  at B=16 S=1024 through ``MPMDPipeline`` with its stage actors on the
+  card (one stage with one microbatch, then two with 8), AdamW: tokens/s,
+  MFU, bubble fraction against ``simulate_schedule``, activation GB/s, no
+  driver sync in the stream, and each leg's losses, the lockstep steps
+  and the streamed ones, held to the same chunks composed here (the fp32
+  flash kernels' user path);
 - ``[resnet]`` (after ``[zero]`` in the shared cluster): ResNet-50 with
   the CIFAR stem through ``TorchTrainer`` (one worker,
   ``train_loop_per_worker``, one epoch of 8192 seeded images of
@@ -111,7 +127,10 @@ three main paths with random weights from a seed:
   B=8 x S=1024 with ``MoEConfig()``'s 8 experts (top-2) in every block
   (12 launches of each kernel a step, a falling loss); then one fp32
   step of a 2-layer GPT-2 small, and of its MoE cut, on the card against
-  the same step on the CPU;
+  the same step on the CPU; ``[remat]``, GPT-2 medium (24 x 1024) at
+  B=8 x S=1024 with the remat layer stack and without it, from the same
+  weights: the same losses, a lower peak memory, 48/24/24 launches a
+  step checkpointed and 24/24/24 not;
 - the Llama family at ``llama_1b``'s shape (the TinyLlama-1.1B config:
   22 layers, width 2048, 32 query heads over 4 K/V heads):
   ``[llama-serve]`` serves it in bf16 through ``LLMServer`` (8 requests,
@@ -161,15 +180,17 @@ after the build, and the main paths run in those dtypes.  Then it times
 each kernel (in CUDA graphs, without the host's enqueue) beside its
 bound, its achieved TFLOP/s, its plain version and PyTorch's SDPA, in
 bf16 at the training shapes (GPT-2's two and llama_1b's) and in fp32 at
-the fp32 step's shape.
+the fp32 step's shape and ``[pipeline]``'s microbatch shape.
 The RL phases that need no cluster, ``[ppo-parity]`` to ``[cli]``, run
-in a process of their own (``chip_smoke.py --rl-phases <dir>``),
-started before the cluster and joined before ``[train]``: beside
-``[runtime]`` to ``[swap]``, whose times are readings only, so that the
-training phases and the kernels' timings have the card to themselves.
-Its log is printed where it is joined.
+in a process of their own (``chip_smoke.py --rl-phases <dir>``), and
+``[layouts]``' pipeline legs in another with a cluster of its own
+(``--pipeline-legs``), both started before the cluster and joined before
+``[train]``: beside ``[runtime]`` to ``[swap]``, whose times are
+readings only, so that the training phases and the kernels' timings
+have the card to themselves.  Their logs are printed where they are
+joined.
 Every phase raises on failure and nothing is caught, so any failure
-exits non-zero; a failure in the RL phases' process fails the join.
+exits non-zero; a failure in a child's process fails its join.
 
 Just before the kernels line come one ``[record]`` line a phase (its
 seconds and headline numbers as compact JSON), so that a log cut to its
@@ -203,6 +224,7 @@ import torch.nn.functional as F
 
 import ray_tpu_torch
 from ray_tpu_torch.models import (
+    GPT2Config,
     Llama,
     LlamaConfig,
     ResNet,
@@ -210,7 +232,9 @@ from ray_tpu_torch.models import (
     gpt2_loss_fn,
     llama_loss_fn,
     resnet_loss_fn,
+    split_stages,
 )
+from ray_tpu_torch.models import llama as llama_mod
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as attn
 from ray_tpu_torch.ops.moe import (
@@ -220,6 +244,7 @@ from ray_tpu_torch.ops.moe import (
     moe_apply_token_sharded,
 )
 from ray_tpu_torch.parallel import MeshSpec, make_mesh
+from ray_tpu_torch.parallel import mpmd_pipeline as mpmd
 from ray_tpu_torch.parallel.ring_attention import (
     ring_attention,
     ulysses_attention,
@@ -295,6 +320,8 @@ LSE_ATOL = 1e-4
 ODD_TILE_LENGTHS = (192, 320)
 # The path's attention shape: NaiveLM at width 1024 on GPT-2 small.
 PATH_SHAPE = (1, 1024, 12, 64)
+# [pipeline]'s microbatch attention (B=16 over 8 microbatches, fp32).
+PIPELINE_ATTN_SHAPE = (2, 1024, 12, 64)
 # The Llama paths' attention shapes (B, L, H; D = 64), added to both
 # grids: the llama_1b training step's, bf16 8x32x1024x64 with the LSE,
 # and its NaiveLM oracle's, fp32 1x32x2048x64.
@@ -3910,6 +3937,9 @@ def train_steps(b, length, iters, seed=SEED, batches=None, zero=None,
            "n_params": sum(p.numel() for p in model.parameters()),
            "iters": iters, "build_s": build_s, "warm_s": warm_s,
            "num_layers": cfg.num_layers, "hidden_size": cfg.hidden_size,
+           "config": {f: getattr(cfg, f) for f in (
+               "num_layers", "num_heads", "hidden_size", "vocab_size",
+               "scan_layers_threshold")},
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "info": info}
     if groups is not None:
@@ -4455,16 +4485,23 @@ def phase_timing_bwd(card) -> dict:
 
 def phase_timing_fp32(card):
     """The fp32 kernels (the FMA routes) at the fp32 step's attention
-    shape (1x12x1024x64, causal, q/k/v the views of a fused QKV output):
-    the forward with the LSE, dq and dkv, each held against its plain
-    version and timed in a CUDA graph beside its bound (fp32 at the FMA
-    rate), the plain versions and SDPA in fp32 (TF32 off, as
-    phase_device sets it; its backward as forward+backward minus
-    forward, from back-to-back launches)."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    q, k, v = fused_qkv(*PATH_SHAPE, torch.float32, gen)
+    shape (1x12x1024x64) and at [pipeline]'s microbatch shape
+    (2x12x1024x64): ``timing_fp32_at`` each."""
+    timing_fp32_at(card, PATH_SHAPE, SEED + 6)
+    timing_fp32_at(card, PIPELINE_ATTN_SHAPE, SEED + 7)
+
+
+def timing_fp32_at(card, shape, seed):
+    """The fp32 kernels at ``shape`` (B, L, H, D; causal, q/k/v the views
+    of a fused QKV output): the forward with the LSE, dq and dkv, each
+    held against its plain version and timed in a CUDA graph beside its
+    bound (fp32 at the FMA rate), the plain versions and SDPA in fp32
+    (TF32 off, as phase_device sets it; its backward as forward+backward
+    minus forward, from back-to-back launches)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = fused_qkv(*shape, torch.float32, gen)
     d_out = torch.randn(q.shape, device="cuda", generator=gen)
-    scale = PATH_SHAPE[-1] ** -0.5
+    scale = shape[-1] ** -0.5
     with torch.no_grad():
         out, lse = attn._flash_fwd_cuda(q, k, v, True, scale, True)
         out_ref, lse_ref = attn.flash_attention_reference(q, k, v, True,
@@ -4481,7 +4518,7 @@ def phase_timing_fp32(card):
                            bwd_error(got[2], want[2]))}
         if not max(errs.values()) <= BWD_TOL[torch.float32]:
             raise AssertionError(f"fp32 kernels disagree at "
-                                 f"{PATH_SHAPE}: {errs}")
+                                 f"{shape}: {errs}")
         del out_ref, lse_ref, got, want
         t = {"fwd": graph_ms(lambda: attn._flash_fwd_cuda(
                  q, k, v, True, scale, True)),
@@ -4516,7 +4553,14 @@ def phase_timing_fp32(card):
                      f"({routes[kernel]}) {t[name]:.4f} ms, "
                      f"{rate_line(q, True, name, t[name], True)}, error "
                      f"{errs[name]:.3g}")
-    log(f"[timing-fp32] {card} | 1x12x1024x64 fp32 causal fused, TF32 off: "
+    b, length, h, d = shape
+    note("timing-fp32", **{f"{b}x{h}x{length}x{d} {name}_ms": t[name]
+                           for name in ("fwd", "dq", "dkv", "plain_fwd",
+                                        "plain_bwd")},
+         **{f"{b}x{h}x{length}x{d} sdpa_fwd_ms": sdpa_fwd_graph,
+            f"{b}x{h}x{length}x{d} sdpa_bwd_ms": sdpa_bwd})
+    log(f"[timing-fp32] {card} | {b}x{h}x{length}x{d} fp32 causal fused, "
+        f"TF32 off: "
         f"{'; '.join(parts)} (atol {BWD_TOL[torch.float32]}); plain "
         f"forward+LSE {t['plain_fwd']:.4f} ms, plain backward "
         f"{t['plain_bwd']:.4f} ms; SDPA fp32 forward {sdpa_fwd_graph:.4f} "
@@ -6050,6 +6094,261 @@ def phase_moe_train(card) -> dict:
     return {"moe-train": run["launches"]}
 
 
+# [remat]: GPT-2 medium (GPT2Config.gpt2_medium(): 24 layers x 1024, 16
+# heads, vocab 50257), bf16 over fp32 parameters, adamw(3e-4), B=8 S=1024,
+# through make_train_step in this process (train_steps): one warm-up step
+# and REMAT_TRAIN[2] timed steps at the default scan_layers_threshold (24:
+# every block recomputed in the backward), then the same from the same
+# seeded weights at REMAT_KEEP_ALL (25: every activation kept).  Gates: the
+# two runs' losses within REMAT_LOSS_RTOL (relative) step for step, a lower
+# peak memory checkpointed, and the flash launches a step (forward, dq,
+# dkv) 48/24/24 checkpointed (the recompute runs each forward again) and
+# 24/24/24 kept.
+GPT2_MEDIUM = {"num_layers": 24, "num_heads": 16, "hidden_size": 1024}
+REMAT_TRAIN = (8, 1024, 5)  # (B, S, timed steps)
+REMAT_KEEP_ALL = 25
+REMAT_LOSS_RTOL = 1e-6
+
+
+def phase_remat(card) -> dict:
+    """GPT-2 medium's step with the remat layer stack against the same
+    step keeping every activation (see REMAT_TRAIN).  Returns each run's
+    launches."""
+    b, length, iters = REMAT_TRAIN
+    medium = GPT2Config.gpt2_medium()
+    runs, lines = {}, []
+    for label, kw in (("checkpointed", {}),
+                      ("kept", {"scan_layers_threshold": REMAT_KEEP_ALL})):
+        run = train_steps(b, length, iters, config_kw={**GPT2_MEDIUM, **kw})
+        cfg_fields = {f: run["config"][f] for f in
+                      ("num_layers", "num_heads", "hidden_size",
+                       "vocab_size")}
+        if cfg_fields != {f: getattr(medium, f) for f in cfg_fields}:
+            raise AssertionError(f"[remat] not GPT-2 medium: {cfg_fields}")
+        layers = run["num_layers"]
+        remat = layers >= run["config"]["scan_layers_threshold"]
+        per_step = {"flash_fwd": layers * (2 if remat else 1),
+                    "flash_dq": layers, "flash_dkv": layers}
+        if run["warm_launches"] != per_step or run["launches"] != {
+                k: n * iters for k, n in per_step.items()}:
+            raise AssertionError(
+                f"[remat] {label}: warm-up launched {run['warm_launches']}"
+                f", {iters} steps {run['launches']}; a step should launch "
+                f"{per_step}")
+        if not all(np.isfinite(run["losses"])):
+            raise AssertionError(f"[remat] {label}: losses {run['losses']}")
+        tokens_per_s, mfu, flops = train_rates(run, b, length, iters)
+        ms = run["seconds"] / iters * 1e3
+        note("remat", **{f"{label} ms_per_step": ms,
+                         f"{label} tokens_per_s": tokens_per_s,
+                         f"{label} mfu": mfu,
+                         f"{label} peak_gib": run["peak_gib"]})
+        lines.append(
+            f"{label} (threshold {run['config']['scan_layers_threshold']}): "
+            f"{ms:.1f} ms/step, {tokens_per_s:.0f} tokens/s, MFU {mfu:.4f}, "
+            f"peak memory {run['peak_gib']:.2f} GiB, launches a step "
+            f"{per_step}")
+        runs[label] = run
+    a, k = runs["checkpointed"]["losses"], runs["kept"]["losses"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a, k))
+    bits = a == k
+    note("remat", loss_rel=rel, bitwise=bits)
+    routes = {name: r["bfloat16"] for name, r in routes_by_dtype().items()}
+    log(f"[remat] {card} | GPT-2 medium (N={runs['kept']['n_params']}) "
+        f"B={b} S={length} bf16/fp32-params adamw, warm-up + {iters} steps "
+        f"each, bf16 routes {routes}: " + "; ".join(lines)
+        + f"; losses {' '.join(f'{x:.6f}' for x in a)} vs "
+        f"{' '.join(f'{x:.6f}' for x in k)}: worst relative difference "
+        f"{rel:.3g} (bound {REMAT_LOSS_RTOL}), bit for bit {bits}")
+    if not rel <= REMAT_LOSS_RTOL:
+        raise AssertionError(f"[remat] losses differ: {a} vs {k}")
+    if not runs["checkpointed"]["peak_gib"] < runs["kept"]["peak_gib"]:
+        raise AssertionError("[remat] checkpointing did not lower the peak "
+                             "memory")
+    return {f"remat {label}": run["launches"]
+            for label, run in runs.items()}
+
+
+# [pipeline]: bench.py's bench_gpt2_pipeline at its full configuration
+# (bench.py:326-327): GPT-2 small in fp32 split by split_stages, B=16
+# S=1024, AdamW at 3e-4 with optax.adamw's defaults (train.adamw), the
+# MPMDPipeline's stage actors on the card (half of it each at two
+# stages).  Two legs: one stage with one microbatch, then two stages with
+# PIPELINE_TRAIN[2] microbatches and step_window 2; each runs two
+# lockstep train_steps (the first the warm-up), then PIPELINE_TRAIN[3]
+# submit_steps and a flush, timed.  Gates: no driver sync in the stream,
+# finite losses, the launches of each kernel a step (12 a microbatch), and
+# each leg's losses, the two train_steps and the streamed steps, equal to
+# the same stage functions composed in this process on the card, from the
+# same weights with the same optimizer (full-batch gradients), step for
+# step, within PIPELINE_RTOL and PIPELINE_ATOL (the tolerance of
+# __graft_entry__.py's _dryrun_pipeline_mesh): a stale parameter or a
+# reordered step inside the window shows there.
+PIPELINE_TRAIN = (16, 1024, 8, 8)  # (B, S, microbatches, streamed steps)
+PIPELINE_LR = 3e-4
+PIPELINE_RTOL, PIPELINE_ATOL = 1e-5, 1e-6
+PIPELINE_WARM_STEPS = 2
+
+
+def stage_launches(core, zero=False) -> dict:
+    """In a stage's process: its flash launches (set to 0 after reading
+    with ``zero``)."""
+    counts = dict(attn.LAUNCHES)
+    if zero:
+        zero_launches()
+    return counts
+
+
+def composed_reference(fns, inits, ids, steps, lr, device="cuda") -> list:
+    """The chunk functions composed in this process on ``device`` from
+    the same weights (the init functions drawn here), with one
+    ``train.adamw`` a chunk: the full-batch losses of ``steps`` steps."""
+    params = [{k: v.to(device).requires_grad_(True) for k, v in f().items()}
+              for f in inits]
+    opts = [adamw(list(p.values()), lr) for p in params]
+    tokens = torch.from_numpy(np.asarray(ids)).long().to(device)
+    losses = []
+    for _ in range(steps):
+        h = tokens
+        for c in range(len(fns) - 1):
+            h = fns[c](params[c], h)
+        loss = fns[-1](params[-1], h, tokens)
+        for o in opts:
+            o.zero_grad(set_to_none=True)
+        loss.backward()
+        for o in opts:
+            o.step()
+        losses.append(loss.item())
+    del params, opts
+    torch.cuda.empty_cache()
+    return losses
+
+
+def pipeline_leg(cfg, num_stages, microbatches, ids) -> dict:
+    """One leg of bench_gpt2_pipeline on the card: the warm-up and
+    lockstep train_steps, then the timed stream, the launches of each
+    stage counted over the stream alone."""
+    b, length, _, steps = PIPELINE_TRAIN
+    fns, inits = split_stages(cfg, num_stages)
+    t0 = time.perf_counter()
+    pipe = mpmd.MPMDPipeline(
+        fns, inits, optimizer=functools.partial(adamw,
+                                                learning_rate=PIPELINE_LR),
+        num_microbatches=microbatches, step_window=2, drain_timeout=GET_S,
+        bootstrap_timeout=GET_S)
+    try:
+        lockstep = [pipe.train_step(ids, ids)
+                    for _ in range(PIPELINE_WARM_STEPS)]
+        warm_s = time.perf_counter() - t0
+        ray_tpu_torch.get([s.run.remote(stage_launches, True)
+                           for s in pipe.stages], timeout=GET_S)
+        syncs0 = mpmd.mpmd_driver_sync_count()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            pipe.submit_step(ids, ids)
+        stream = pipe.flush()
+        seconds = time.perf_counter() - t0
+        syncs = mpmd.mpmd_driver_sync_count() - syncs0
+        per_stage = ray_tpu_torch.get(
+            [s.run.remote(stage_launches) for s in pipe.stages],
+            timeout=GET_S)
+        stats = pipe.stats()
+    finally:
+        pipe.stop()
+    launches = {name: sum(c[name] for c in per_stage)
+                for name in attn.LAUNCHES}
+    return {"fns": fns, "inits": inits, "lockstep": lockstep,
+            "stream": [loss for _, loss in sorted(stream)],
+            "seconds": seconds,
+            "warm_s": warm_s, "syncs": syncs, "stats": stats,
+            "launches": launches, "stage_launches": per_stage,
+            "blocks": [f.blocks for f in fns],
+            "tokens_per_s": steps * b * length / seconds}
+
+
+def phase_pipeline(card) -> dict:
+    """bench_gpt2_pipeline's two legs on the card (see PIPELINE_TRAIN).
+    Returns each leg's launches."""
+    b, length, microbatches, steps = PIPELINE_TRAIN
+    cfg = GPT2Config.gpt2_small(dtype=torch.float32)
+    ids = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=(b, length)).astype(np.int32)
+    n_params = cfg.num_layers * 12 * cfg.hidden_size ** 2 \
+        + 2 * cfg.vocab_size * cfg.hidden_size \
+        + cfg.max_position_embeddings * cfg.hidden_size
+    fpt = 6 * n_params + 12 * cfg.num_layers * cfg.hidden_size * length
+    peak = PEAK_OPS_PER_S[torch.float32]
+    routes = {name: r["float32"] for name, r in routes_by_dtype().items()}
+    legs = {}
+    for stages, m in ((1, 1), (2, microbatches)):
+        leg = pipeline_leg(cfg, stages, m, ids)
+        per_step = {name: cfg.num_layers * m for name in attn.LAUNCHES}
+        losses = leg["lockstep"] + leg["stream"]
+        if leg["syncs"] != 0:
+            raise AssertionError(f"[pipeline] {stages} stage(s): "
+                                 f"{leg['syncs']} driver syncs in the stream")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"[pipeline] losses {losses}")
+        if leg["launches"] != {k: n * steps for k, n in per_step.items()}:
+            raise AssertionError(
+                f"[pipeline] {stages} stage(s): the stream launched "
+                f"{leg['launches']}, expected {per_step} a step")
+        st = leg["stats"]
+        predicted = mpmd.simulate_schedule("1f1b", stages, m)[
+            "bubble_fraction"]
+        mfu = leg["tokens_per_s"] * fpt / (stages * peak)
+        note("pipeline", **{f"{stages}-stage tokens_per_s":
+                            leg["tokens_per_s"],
+                            f"{stages}-stage mfu_per_card": mfu,
+                            f"{stages}-stage bubble": st["bubble_fraction"],
+                            f"{stages}-stage bubble_predicted": predicted,
+                            f"{stages}-stage act_gb_per_s":
+                            st["act_gb_per_s"],
+                            f"{stages}-stage ms_per_step":
+                            leg["seconds"] / steps * 1e3})
+        log(f"[pipeline] {card} | GPT-2 small fp32 B={b} S={length}, "
+            f"{stages} stage(s) (blocks {leg['blocks']}), {m} "
+            f"microbatch(es), step_window 2, adamw({PIPELINE_LR}): "
+            f"{steps} streamed steps in {leg['seconds']:.3f} s = "
+            f"{leg['seconds'] / steps * 1e3:.1f} ms/step, "
+            f"{leg['tokens_per_s']:.0f} tokens/s, MFU per card "
+            f"{mfu:.4f} (bench.py:365-371: tokens/s x {fpt / 1e9:.3f} "
+            f"GFLOP/token over {stages} x the fp32 peak "
+            f"{peak / 1e12:.0f} TFLOP/s; the stages share one card); "
+            f"bubble fraction {st['bubble_fraction']:.4f} measured, "
+            f"{predicted:.4f} predicted by simulate_schedule; activation "
+            f"{st['act_gb_per_s']:.3f} GB/s; driver syncs in the stream "
+            f"{leg['syncs']}; stats {json.dumps(st, default=str)}; flash "
+            f"launches a step {per_step} by stage "
+            f"{leg['stage_launches']} over the stream, fp32 routes "
+            f"{routes}; losses {' '.join(f'{x:.4f}' for x in losses)}; "
+            f"start and warm-up {leg['warm_s']:.1f} s")
+        legs[stages] = leg
+    for stages, leg in legs.items():
+        got = leg["lockstep"] + leg["stream"]
+        ref = composed_reference(leg["fns"], leg["inits"], ids, len(got),
+                                 PIPELINE_LR)
+        excess = allclose_excess(torch.tensor(got, dtype=torch.float64),
+                                 torch.tensor(ref, dtype=torch.float64),
+                                 PIPELINE_RTOL) - PIPELINE_ATOL
+        note("pipeline", **{f"{stages}-stage ref_excess": excess})
+        log(f"[pipeline] {card} | {stages} stage(s): the {len(got)} losses "
+            f"({PIPELINE_WARM_STEPS} train_steps, then the stream) "
+            f"{' '.join(f'{x:.7f}' for x in got)} vs the chunks composed "
+            f"in this process {' '.join(f'{x:.7f}' for x in ref)} (rtol "
+            f"{PIPELINE_RTOL}, atol {PIPELINE_ATOL}; excess {excess:.3g})")
+        if not excess <= 0:
+            raise AssertionError(f"[pipeline] {stages} stage(s): losses "
+                                 f"{got} vs composed {ref}")
+    ratio = legs[2]["tokens_per_s"] / legs[1]["tokens_per_s"]
+    note("pipeline", ratio_tokens=ratio)
+    log(f"[pipeline] {card} | two stages over one: tokens/s ratio "
+        f"{ratio:.3f} (bench.py's >= 0.8 quantity; a reading here, the two "
+        f"stages sharing one card)")
+    return {f"pipeline {k}-stage": leg["launches"]
+            for k, leg in legs.items()}
+
+
 # [resnet]: ResNetConfig.resnet50_cifar() (bf16 convolutions, fp32 BN and
 # head) through TorchTrainer, one worker, train_loop_per_worker: one epoch
 # of RESNET_TRAIN images of CIFAR-10's shape at B=256 through the Data
@@ -6427,6 +6726,106 @@ def phase_layouts(card) -> dict:
     return {"layouts": m["launches"]}
 
 
+# [layouts]' pipeline legs: __graft_entry__.py's _dryrun_pipeline_mesh
+# (:119) and _dryrun_llama_3d (:173) on the card, each at its reference's
+# size and tolerance.  Their stage 0 with spmd_devices=2 is a 2-rank gang
+# here, and so is every other stage (a pipeline's gangs are one width):
+# each rank a quarter of the card over gloo.  Gates: the fp32 wire's
+# losses against the chunks composed in this process (the same weights and
+# adamw) within DRYRUN_RTOL and DRYRUN_ATOL, the int8 wire's within
+# DRYRUN_INT8_ENVELOPE of the composed losses, and the int8 wire at least
+# DRYRUN_WIRE_X times smaller than the fp32 bytes.
+DRYRUN_RTOL, DRYRUN_ATOL = 1e-5, 1e-6
+DRYRUN_INT8_ENVELOPE = 0.05
+DRYRUN_WIRE_X = 3.0
+DRYRUN_LR = 1e-3
+DRYRUN_GANG = 2
+
+
+def gang_launches(pipe) -> list:
+    """Every gang rank's flash launches."""
+    return [n for g in pipe._gangs
+            for n in g.run(lambda: dict(attn.LAUNCHES), timeout=GET_S)]
+
+
+def dryrun_leg(fns, inits, ids, steps, **kw) -> dict:
+    t0 = time.perf_counter()
+    pipe = mpmd.MPMDPipeline(
+        fns, inits, optimizer=functools.partial(adamw,
+                                                learning_rate=DRYRUN_LR),
+        gang_hosts=DRYRUN_GANG, drain_timeout=GET_S,
+        bootstrap_timeout=GET_S, **kw)
+    try:
+        losses = [pipe.train_step(ids, ids) for _ in range(steps)]
+        stats = pipe.stats()
+        launches = gang_launches(pipe)
+    finally:
+        pipe.stop()
+    return {"losses": losses, "stats": stats, "launches": launches,
+            "s": time.perf_counter() - t0}
+
+
+def layouts_pipelines(card) -> dict:
+    """The two dryrun legs that wait for the pipelines (see DRYRUN_RTOL).
+    Returns the gang workers' flash launches (none: the tiny models'
+    lengths take the plain path)."""
+    excess = lambda got, want: allclose_excess(  # noqa: E731
+        torch.tensor(got, dtype=torch.float64),
+        torch.tensor(want, dtype=torch.float64), DRYRUN_RTOL) - DRYRUN_ATOL
+    rng = np.random.default_rng(0)
+    cfg = GPT2Config.tiny(dtype=torch.float32)
+    fns, inits = split_stages(cfg, 2)
+    ids = rng.integers(0, cfg.vocab_size, size=(8, 64)).astype(np.int32)
+    gpt = dryrun_leg(fns, inits, ids, 2, num_microbatches=4)
+    gpt["ref"] = composed_reference(fns, inits, ids, 2, DRYRUN_LR)
+    gpt["excess"] = excess(gpt["losses"], gpt["ref"])
+
+    lcfg = LlamaConfig.tiny(dtype=torch.float32, num_layers=4)
+    S, v = 2, 2
+    lfns, linits = llama_mod.split_stages(lcfg, S, virtual_per_rank=v)
+    rng = np.random.default_rng(0)
+    lids = rng.integers(0, lcfg.vocab_size, size=(8, 32)).astype(np.int32)
+    zero = {"zero_sharding": "opt+grads"}
+    llama = {wire: dryrun_leg(lfns, linits, lids, 2, num_microbatches=2,
+                              virtual_per_rank=v, wire_dtype=wire,
+                              stage_options=[dict(zero), dict(zero)])
+             for wire in ("fp32", "int8")}
+    lref = composed_reference(lfns, linits, lids, 2, DRYRUN_LR)
+    l_excess = excess(llama["fp32"]["losses"], lref)
+    int8_gap = max(abs(a - b) for a, b in zip(llama["int8"]["losses"],
+                                              lref))
+    wire_x = llama["int8"]["stats"]["wire_reduction_vs_fp32"]
+    launches = gpt["launches"] + [n for leg in llama.values()
+                                  for n in leg["launches"]]
+    note("layouts", pipeline_excess=gpt["excess"], llama_excess=l_excess,
+         llama_int8_gap=int8_gap, llama_wire_x=wire_x,
+         pipeline_s=gpt["s"], llama_s=sum(x["s"] for x in llama.values()))
+    log(f"[layouts] {card} | _dryrun_pipeline_mesh: GPT-2 tiny fp32 in 2 "
+        f"stages, each a {DRYRUN_GANG}-rank gang over gloo at a quarter of "
+        f"the card, 4 microbatches, adamw({DRYRUN_LR}): losses "
+        f"{' '.join(f'{x:.7f}' for x in gpt['losses'])} vs composed "
+        f"{' '.join(f'{x:.7f}' for x in gpt['ref'])} (rtol {DRYRUN_RTOL}, "
+        f"atol {DRYRUN_ATOL}; excess {gpt['excess']:.3g}), {gpt['s']:.1f} s")
+    log(f"[layouts] {card} | _dryrun_llama_3d: Llama tiny (4 layers, GQA, "
+        f"SwiGLU) fp32, 2 stages x virtual_per_rank {v}, "
+        f"{DRYRUN_GANG}-rank gangs with ZeRO opt+grads, 2 microbatches: "
+        f"fp32 wire {' '.join(f'{x:.7f}' for x in llama['fp32']['losses'])}"
+        f" vs composed {' '.join(f'{x:.7f}' for x in lref)} (excess "
+        f"{l_excess:.3g}); int8 wire "
+        f"{' '.join(f'{x:.7f}' for x in llama['int8']['losses'])} (worst "
+        f"gap {int8_gap:.3g}, bound {DRYRUN_INT8_ENVELOPE}), "
+        f"{wire_x:.2f}x fewer wire bytes (bound {DRYRUN_WIRE_X}); "
+        f"{sum(x['s'] for x in llama.values()):.1f} s; gang flash "
+        f"launches {launches}")
+    if not (gpt["excess"] <= 0 and l_excess <= 0
+            and int8_gap < DRYRUN_INT8_ENVELOPE and wire_x >= DRYRUN_WIRE_X):
+        raise AssertionError("[layouts] a pipeline dryrun leg failed")
+    if any(any(n.values()) for n in launches):
+        raise AssertionError(f"[layouts] pipeline gangs launched {launches}")
+    return {"layouts pipelines": {name: sum(n[name] for n in launches)
+                                  for name in attn.LAUNCHES}}
+
+
 def timed(tag, phase, *args):
     """Run one phase, log its seconds and keep them for its record line."""
     RECORD.setdefault(tag, {})
@@ -6486,29 +6885,49 @@ def rl_phases_main(out_dir) -> None:
     phase_device()
     rl = rl_phases(card_line())
     with open(os.path.join(out_dir, "result.json"), "w") as f:
-        json.dump({"rl": rl, "record": RECORD}, f)
+        json.dump({"launches": rl, "record": RECORD}, f)
 
 
-def start_rl_phases() -> dict:
-    """Starts ``rl_phases`` in a child process on the card, in a session
-    of its own (so that ``stop_rl_phases`` ends the CLI it starts too),
-    its standard output in a file until ``join_rl_phases`` prints it.
-    The RL phases seed every draw and need no cluster; run beside the
-    cluster's phases they share the card and the host, which moves only
-    the times of both."""
+PIPELINE_LEGS_FLAG = "--pipeline-legs"
+
+
+def pipeline_legs_main(out_dir) -> None:
+    """``chip_smoke.py --pipeline-legs <dir>``: ``layouts_pipelines`` in a
+    process of its own with a cluster of its own (the gangs' workers
+    start while the main cluster's serving phases run), with
+    ``phase_device``'s settings; its launches and record go to
+    ``<dir>/result.json``."""
+    phase_device()
+    card = card_line()
+    ray_tpu_torch.init(num_cpus=RUNTIME_CPUS)
+    try:
+        legs = timed("layouts-pipelines", layouts_pipelines, card)
+    finally:
+        ray_tpu_torch.shutdown()
+    with open(os.path.join(out_dir, "result.json"), "w") as f:
+        json.dump({"launches": legs, "record": RECORD}, f)
+
+
+def start_child(flag, prefix) -> dict:
+    """Starts ``chip_smoke.py <flag> <dir>`` in a child process on the
+    card, in a session of its own (so that ``stop_child`` ends what it
+    starts too), its standard output in a file until ``join_child``
+    prints it.  Its phases seed every draw; run beside this process's
+    phases they share the card and the host, which moves only the times
+    of both."""
     import tempfile
 
-    tmp = tempfile.mkdtemp(prefix="rttp_rl_")
+    tmp = tempfile.mkdtemp(prefix=prefix)
     out = open(os.path.join(tmp, "log"), "w")
     proc = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), RL_PHASES_FLAG, tmp],
+        [sys.executable, os.path.abspath(__file__), flag, tmp],
         stdout=out, cwd=os.path.dirname(os.path.abspath(__file__)),
         start_new_session=True)
     return {"proc": proc, "tmp": tmp, "out": out, "t0": time.perf_counter()}
 
 
-def join_rl_phases(child) -> dict:
-    """Waits for the RL phases' process, prints its log, takes its record
+def join_child(child, tag, what) -> dict:
+    """Waits for a child's process, prints its log, takes its record
     lines and returns its launches; raises if it failed."""
     t0 = time.perf_counter()
     rc = child["proc"].wait()
@@ -6518,23 +6937,22 @@ def join_rl_phases(child) -> dict:
         sys.stdout.write(f.read())
     sys.stdout.flush()
     if rc != 0:
-        raise AssertionError(f"[rl-phases] the RL phases' process exited "
-                             f"{rc}")
+        raise AssertionError(f"[{tag}] {what}' process exited {rc}")
     with open(os.path.join(child["tmp"], "result.json")) as f:
         result = json.load(f)
-    for tag, numbers in result["record"].items():
-        note(tag, **numbers)
+    for name, numbers in result["record"].items():
+        note(name, **numbers)
     seconds = time.perf_counter() - child["t0"]
-    note("rl-phases", s=seconds, waited_s=waited)
-    log(f"[rl-phases] the RL phases ran in a process of their own beside "
-        f"the cluster's phases: {seconds:.1f} s, of which this process "
-        f"waited {waited:.1f} s")
-    return result["rl"]
+    note(tag, s=seconds, waited_s=waited)
+    log(f"[{tag}] {what} ran in a process of their own beside this "
+        f"process's phases: {seconds:.1f} s, of which this process waited "
+        f"{waited:.1f} s")
+    return result["launches"]
 
 
-def stop_rl_phases(child) -> None:
-    """Ends the RL phases' process and what it started, if still running,
-    and removes its files."""
+def stop_child(child) -> None:
+    """Ends a child's process and what it started, if still running, and
+    removes its files."""
     import shutil
     import signal
 
@@ -6562,12 +6980,15 @@ def main():
     launches, disagg_native = timed("disagg", phase_disagg, card,
                                     serve_model)
     serving.update(launches)
-    # The RL phases that need no cluster run in a process of their own
-    # beside the cluster's phases up to [swap], whose times are readings
-    # only; they are joined before [train], so that the training phases,
-    # the Llama phases and the kernels' timings have the card to
-    # themselves.
-    child = start_rl_phases()
+    # The RL phases that need no cluster run in a process of their own,
+    # and [layouts]' two pipeline legs (correctness only; their gangs'
+    # workers take most of their time to start) in a process and a
+    # cluster of their own, both beside the cluster's phases up to
+    # [swap], whose times are readings only; they are joined before
+    # [train], so that the training phases, [dp2], the Llama phases and
+    # the kernels' timings have the card to themselves.
+    child = start_child(RL_PHASES_FLAG, "rttp_rl_")
+    legs = start_child(PIPELINE_LEGS_FLAG, "rttp_legs_")
     try:
         # The runtime's phases share one cluster on this machine (its
         # workers are subprocesses), up from [runtime] to [resnet]:
@@ -6594,9 +7015,12 @@ def main():
             serving.update(timed("swap", phase_swap, card, serve_model))
             del serve_model
             torch.cuda.empty_cache()
-            rl = join_rl_phases(child)
+            rl = join_child(child, "rl-phases", "the RL phases")
+            layout_legs = join_child(legs, "layouts-pipelines",
+                                     "[layouts]' pipeline legs")
             train = timed("train", phase_train, card)
             moe = timed("moe-train", phase_moe_train, card)
+            remat = timed("remat", phase_remat, card)
             actor_train, actor_rates = timed("actor-train",
                                              phase_actor_train, card, train)
             trainer, trainer_runs = timed("trainer", phase_trainer, card,
@@ -6604,10 +7028,12 @@ def main():
             data = timed("data", phase_data, card, train)
             trainer.update(timed("zero", phase_zero, card, trainer_runs))
             resnet = timed("resnet", phase_resnet, card)
+            pipeline = timed("pipeline", phase_pipeline, card)
         finally:
             ray_tpu_torch.shutdown()
     finally:
-        stop_rl_phases(child)
+        stop_child(child)
+        stop_child(legs)
     # [dp2] in a cluster of its own: its elastic leg's boundary snapshot
     # (GPT-2 small's parameters and Adam moments) needs a larger store.
     ray_tpu_torch.init(num_cpus=RUNTIME_CPUS,
@@ -6617,6 +7043,7 @@ def main():
         layouts = timed("layouts", phase_layouts, card)
     finally:
         ray_tpu_torch.shutdown()
+    layouts.update(layout_legs)
     timed("train-fp32", phase_train_fp32)
     llama, model = timed("llama-serve", phase_llama_serve, card)
     model = llama_copy(model, dtype=torch.bfloat16)
@@ -6634,8 +7061,8 @@ def main():
     by_path = {"fp32": {"flash_fwd": fp32_launches}, **serving, **rlhf,
                **{f"train {tag}": run["launches"]
                   for tag, run in train.items()},
-               **moe, **actor_train, **trainer, **data, **resnet,
-               **layouts,
+               **moe, **remat, **actor_train, **trainer, **data, **resnet,
+               **pipeline, **layouts,
                **actor_rl,
                **llama, **rl}
     # dq's and dkv's top-level fields are those of the first training
@@ -6671,5 +7098,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == [RL_PHASES_FLAG]:
         rl_phases_main(sys.argv[2])
+    elif sys.argv[1:2] == [PIPELINE_LEGS_FLAG]:
+        pipeline_legs_main(sys.argv[2])
     else:
         main()

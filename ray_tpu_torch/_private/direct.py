@@ -40,6 +40,7 @@ Copied from ``ray_tpu/_private/direct.py`` (the JAX package).
 from __future__ import annotations
 
 import os
+import socket
 import threading
 import time
 from collections import deque
@@ -353,6 +354,30 @@ def pick_endpoint(addr: Optional[dict], my_host_key: str) -> Optional[tuple]:
     return None
 
 
+# Pending connections a listener queues while its accept loop runs a
+# handshake (multiprocessing's default is 1: a burst of clients, a gang's
+# ranks fetching from one owner at once, would be refused).
+LISTEN_BACKLOG = 128
+
+
+def accept_next(listener, stopped: Callable[[], bool]):
+    """The next authenticated connection on ``listener``, or None once it
+    is closed (``stopped()`` true, or its socket gone).  A client that
+    fails the handshake (it went away, timed out or gave a wrong key)
+    costs only its own connection: the loop goes on accepting."""
+    from multiprocessing import AuthenticationError
+
+    while not stopped():
+        try:
+            return listener.accept()
+        except (EOFError, ConnectionError, AuthenticationError,
+                socket.timeout):
+            continue  # this client's handshake failed
+        except OSError:
+            return None  # the listener was closed
+    return None
+
+
 def _connect(endpoint: tuple, authkey: bytes):
     from multiprocessing.connection import Client
 
@@ -389,11 +414,13 @@ class DirectServer:
             os.makedirs(session_dir, exist_ok=True)
             path = os.path.join(session_dir,
                                 f"dx-{os.urandom(6).hex()}.sock")
-            lsn = Listener(path, family="AF_UNIX", authkey=authkey)
+            lsn = Listener(path, family="AF_UNIX", backlog=LISTEN_BACKLOG,
+                           authkey=authkey)
             self._listeners.append(lsn)
             addr["unix"] = path
         if tcp_bind is not None:
-            lsn = Listener((tcp_bind, 0), family="AF_INET", authkey=authkey)
+            lsn = Listener((tcp_bind, 0), family="AF_INET",
+                           backlog=LISTEN_BACKLOG, authkey=authkey)
             self._listeners.append(lsn)
             port = lsn.address[1]
             if tcp_bind in ("0.0.0.0", "::"):
@@ -408,10 +435,9 @@ class DirectServer:
                              name="rtpu-direct-accept", daemon=True).start()
 
     def _accept_loop(self, listener):
-        while not self._shutdown:
-            try:
-                conn = listener.accept()
-            except Exception:
+        while True:
+            conn = accept_next(listener, lambda: self._shutdown)
+            if conn is None:
                 return
             threading.Thread(target=self._serve, args=(conn,),
                              name="rtpu-direct-conn", daemon=True).start()

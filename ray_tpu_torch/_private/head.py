@@ -30,6 +30,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ray_tpu_torch import exceptions as exc
 from ray_tpu_torch._private import serialization as ser
+from ray_tpu_torch._private.direct import LISTEN_BACKLOG, accept_next
 from ray_tpu_torch._private.gcs import GCS, ActorState, NodeInfo, TaskEvent
 from ray_tpu_torch._private.ids import (
     ActorID,
@@ -156,6 +157,7 @@ class Head:
         self._driver_conns: Dict[bytes, Any] = {}     # driver wid -> live conn
         self._has_remote = False
         self._listener = Listener(self.socket_path, family="AF_UNIX",
+                                  backlog=LISTEN_BACKLOG,
                                   authkey=self.authkey)
         self._accept_thread = threading.Thread(target=self._accept_loop,
                                                name="rtpu-accept", daemon=True)
@@ -170,7 +172,9 @@ class Head:
 
         self.tcp_bind_host = CONFIG.tcp_host
         self._tcp_listener = Listener((self.tcp_bind_host, tcp_port),
-                                      family="AF_INET", authkey=self.authkey)
+                                      family="AF_INET",
+                                      backlog=LISTEN_BACKLOG,
+                                      authkey=self.authkey)
         self.tcp_port = self._tcp_listener.address[1]
         self._tcp_accept_thread = threading.Thread(
             target=self._accept_loop,
@@ -644,10 +648,9 @@ class Head:
     # ================= worker connections =================
     def _accept_loop(self, listener=None, thread_name: str = "rtpu-conn"):
         listener = listener or self._listener
-        while not self._shutdown:
-            try:
-                conn = listener.accept()
-            except (OSError, EOFError):
+        while True:
+            conn = accept_next(listener, lambda: self._shutdown)
+            if conn is None:
                 return
             t = threading.Thread(target=self._conn_loop, args=(conn,),
                                  name=thread_name, daemon=True)

@@ -34,6 +34,7 @@ from collections import OrderedDict
 from multiprocessing.connection import Client, Listener
 from typing import Dict, List, Optional, Set, Tuple
 
+from ray_tpu_torch._private.direct import LISTEN_BACKLOG, accept_next
 from ray_tpu_torch._private.ids import ObjectID
 
 CHUNK = 4 * 1024 * 1024
@@ -258,7 +259,7 @@ class ObjectTransferServer:
     def __init__(self, store, authkey: bytes, host: str = "0.0.0.0"):
         self.store = store
         self._listener = Listener((host, 0), family="AF_INET",
-                                  authkey=authkey)
+                                  backlog=LISTEN_BACKLOG, authkey=authkey)
         self.port = self._listener.address[1]
         self.address: Tuple[str, int] = (routable_ip(), self.port)
         self._shutdown = False
@@ -321,10 +322,9 @@ class ObjectTransferServer:
             return self._partials.pop(oid, None) is not None
 
     def _accept_loop(self):
-        while not self._shutdown:
-            try:
-                conn = self._listener.accept()
-            except (OSError, EOFError):
+        while True:
+            conn = accept_next(self._listener, lambda: self._shutdown)
+            if conn is None:
                 return
             threading.Thread(target=self._serve_conn, args=(conn,),
                              name="rtpu-xfer", daemon=True).start()

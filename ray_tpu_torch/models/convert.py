@@ -13,6 +13,13 @@ names of ``ray_tpu/models/gpt2.py::_AXIS_BY_NAME``:
 - ``h_{i}/moe_router|moe_w_in|moe_w_out`` (the MoE blocks) ->
   ``h.{i}.<name>`` as they are (the einsums use them untransposed);
 - ``wte`` and ``wpe`` as they are; ``ln_f`` as a LayerNorm;
+- ``h_scan`` (the layer stack of a model of ``scan_layers_threshold``
+  layers or more: every leaf stacked on a leading layer axis) unstacked
+  into ``h_{i}`` first (``unstack_layers``);
+- a ``GPT2Stage`` chunk's tree has the same names, its blocks at their
+  global index, plus the untied ``lm_head`` [V, d] of the last chunk,
+  taken as it is (a ``LlamaStage`` chunk has ``Llama``'s names, so
+  ``llama_params_from_jax`` reads it);
 - for ``GPT2WithValue`` (the RLHF actor-critic): ``lm/...`` -> ``lm.``
   plus the names above, ``value_head/{kernel [h, 1], bias [1]}`` ->
   ``value_head.{weight [1, h] (transposed), bias}``.
@@ -120,9 +127,9 @@ def _tensor(a) -> torch.Tensor:
 
 
 def gpt2_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax GPT-2 (or ``GPT2WithValue``) params (nested dict of numpy
-    arrays) -> port state_dict.  Raises ``KeyError`` on a name it does not
-    know, so no parameter is dropped silently."""
+    """flax GPT-2 (``GPT2WithValue``, or a ``GPT2Stage`` chunk's) params
+    (nested dict of numpy arrays) -> port state_dict.  Raises ``KeyError``
+    on a name it does not know, so no parameter is dropped silently."""
     out: Dict[str, torch.Tensor] = {}
     for name, sub in tree.items():
         if name == "lm":
@@ -138,6 +145,10 @@ def gpt2_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             out[name] = _tensor(sub)
         elif name == "ln_f":
             _norm("ln_f", sub, out)
+        elif name == "lm_head" and not isinstance(sub, Mapping):
+            out["lm_head"] = _tensor(sub)
+        elif name == "h_scan":
+            out.update(gpt2_params_from_jax(unstack_layers(sub)))
         elif re.fullmatch(r"h_\d+", name):
             i = int(name[2:])
             for layer, p in sub.items():
@@ -159,6 +170,31 @@ def gpt2_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def unstack_layers(scan_tree: Mapping[str, Any], prefix: str = "h_"
+                   ) -> Dict[str, Any]:
+    """A flax ``nn.scan`` layer stack (every leaf stacked on a leading
+    layer axis, GPT-2's ``h_scan``) as per-layer trees ``{prefix}{i}``."""
+    def leaves(tree, path=()):
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                yield from leaves(v, path + (k,))
+            else:
+                yield path + (k,), np.asarray(v)
+
+    flat = list(leaves(scan_tree))
+    depth = {a.shape[0] for _, a in flat}
+    if len(depth) != 1:
+        raise KeyError(f"layer stack with ragged leading axes {depth}")
+    out: Dict[str, Any] = {}
+    for i in range(depth.pop()):
+        for path, a in flat:
+            node = out.setdefault(f"{prefix}{i}", {})
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = a[i]
+    return out
+
+
 _LLAMA_DENSE = {"attn": ("q_proj", "k_proj", "v_proj", "o_proj"),
                 "mlp": ("gate_proj", "up_proj", "down_proj")}
 
@@ -174,7 +210,9 @@ def llama_params_from_jax(tree: Mapping[str, Any]
                           ) -> Dict[str, torch.Tensor]:
     """flax Llama params (nested dict of numpy arrays) -> port
     state_dict.  Raises ``KeyError`` on a name it does not know, so no
-    parameter is dropped silently."""
+    parameter is dropped silently.  A ``LlamaStage`` tree has the same
+    names (blocks at their global index, the chunk's own ``embed``,
+    ``final_norm`` and ``lm_head`` where it has them)."""
     out: Dict[str, torch.Tensor] = {}
     for name, sub in tree.items():
         if name == "embed":

@@ -42,6 +42,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.attention import cached_attention, mha_attention
 from ray_tpu_torch.ops.layers import gelu
@@ -57,6 +58,9 @@ class GPT2Config:
     hidden_size: int = 768
     mlp_ratio: int = 4
     dtype: torch.dtype = torch.bfloat16
+    # From this depth the full-context forward recomputes each block in
+    # the backward (the JAX package's remat layer stack).
+    scan_layers_threshold: int = 24
     # Mixture-of-Experts in place of every block's dense MLP.
     moe: Optional[MoEConfig] = None
 
@@ -193,7 +197,18 @@ class Block(nn.Module):
 class GPT2(nn.Module):
     """GPT-2 language model with fp32 parameters.  ``wte`` [V, d] and
     ``wpe`` [P, d] are plain parameters (the head is tied to ``wte``).
-    ``attn_fn`` and ``moe_fn`` go to every block."""
+    ``attn_fn`` and ``moe_fn`` go to every block.
+
+    At ``num_layers >= config.scan_layers_threshold`` (24 by default:
+    GPT-2 medium and deeper) the full-context forward runs each block
+    under ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: the
+    block's activations are dropped after the forward and recomputed in
+    the backward, the JAX package's ``nn.remat(Block)`` under its layer
+    scan.  The layers stay a ``ModuleList`` (``h.{i}``); a JAX tree of
+    that depth stacks them as ``h_scan``, which
+    ``convert.gpt2_params_from_jax`` unstacks.  The recompute runs each
+    block's attention forward twice a step.  Incremental decode at that
+    depth raises, as in the JAX package."""
 
     def __init__(self, config: GPT2Config, attn_fn: Optional[Callable] = None,
                  moe_fn: Optional[Callable] = None):
@@ -231,6 +246,11 @@ class GPT2(nn.Module):
             self.wpe[positions]
         x = self.wte[input_ids].to(c.dtype) + pos.to(c.dtype)
         decode = kv_caches is not None
+        remat = c.num_layers >= c.scan_layers_threshold
+        if decode and remat:
+            raise NotImplementedError(
+                "incremental decode is unrolled-layers only; lower "
+                "scan_layers_threshold applies to training compiles")
         if decode and return_hidden:
             raise NotImplementedError(
                 "return_hidden is a full-context (training) path")
@@ -240,6 +260,8 @@ class GPT2(nn.Module):
                 x, nkv = block(x, kv=(kv_caches[i][0], kv_caches[i][1],
                                       kv_lengths))
                 new_kvs.append(nkv)
+            elif remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, use_reentrant=False)
             else:
                 x = block(x)
         x = self.ln_f(x)
@@ -310,3 +332,187 @@ def gpt2_loss_fn(model: GPT2, batch) -> torch.Tensor:
     logits = model(ids)[:, :-1]
     return F.cross_entropy(logits.flatten(0, 1),
                            ids[:, 1:].flatten().long())
+
+
+# ---------------------------------------------------------------------------
+# pipeline stages (``ray_tpu/models/gpt2.py:270-405``)
+# ---------------------------------------------------------------------------
+def _lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
+    """flax's lecun_normal for a torch Linear weight [out, in]: a normal
+    truncated at 2 std, of variance 1/fan_in."""
+    std = (1.0 / w.shape[1]) ** 0.5 / 0.87962566103423978
+    torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                generator=gen)
+
+
+class GPT2Stage(nn.Module):
+    """One pipeline chunk of a split GPT-2 (see :func:`split_stages`).
+
+    The first chunk owns ``wte``/``wpe`` and takes token ids; middle
+    chunks take and give hidden states; the last owns ``ln_f`` and the LM
+    head ``lm_head`` [V, d] and gives fp32 logits.  The head is untied from
+    ``wte``: a split puts them in different processes.  The blocks keep
+    their global index: ``h.{i}`` for ``i`` in ``range(*blocks)``, the
+    names of ``GPT2``'s state dict."""
+
+    def __init__(self, config: GPT2Config, first: bool, last: bool,
+                 blocks: Tuple[int, int]):
+        super().__init__()
+        c = config
+        self.config, self.first, self.last = c, first, last
+        self.blocks = tuple(blocks)
+        if first:
+            self.wte = nn.Parameter(torch.zeros(c.vocab_size, c.hidden_size))
+            self.wpe = nn.Parameter(torch.zeros(c.max_position_embeddings,
+                                                c.hidden_size))
+        self.h = nn.ModuleDict({str(i): Block(c)
+                                for i in range(*self.blocks)})
+        if last:
+            self.ln_f = LayerNorm(c.hidden_size)
+            self.lm_head = nn.Parameter(torch.zeros(c.vocab_size,
+                                                    c.hidden_size))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.config
+        if self.first:
+            l = x.shape[1]
+            x = self.wte[x].to(c.dtype) + self.wpe[None, :l].to(c.dtype)
+        else:
+            x = x.to(c.dtype)
+        for block in self.h.values():
+            x = block(x)
+        if self.last:
+            x = self.ln_f(x)
+            return torch.einsum("bld,vd->blv", x.to(c.dtype),
+                                self.lm_head.to(c.dtype)).float()
+        return x
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> None:
+        """flax's initializers, drawn from ``generator`` in the order of
+        ``named_parameters``: normal(0.02) for ``wte`` and ``lm_head``,
+        normal(0.01) for ``wpe``, lecun-normal Dense kernels, zero biases,
+        LayerNorm scale one and bias zero."""
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if name in ("wte", "lm_head"):
+                p.normal_(0.0, 0.02, generator=generator)
+            elif name == "wpe":
+                p.normal_(0.0, 0.01, generator=generator)
+            elif ".ln_" in name or name.startswith("ln_f"):
+                p.fill_(1.0 if leaf == "weight" else 0.0)
+            elif leaf == "weight":
+                _lecun_normal_(p, generator)
+            else:
+                p.zero_()
+
+
+def _stage_ce_loss(logits: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Next-token CE on a microbatch (the objective of ``gpt2_loss_fn``)."""
+    return F.cross_entropy(logits[:, :-1].flatten(0, 1),
+                           ids[:, 1:].flatten().long())
+
+
+def gpt2_head_cost(config: GPT2Config) -> float:
+    """LM-head cost in block-equivalents: a GPT-2 block is ~12*h^2
+    params/FLOP-units, the head matmul vocab*h."""
+    return config.vocab_size / (12.0 * config.hidden_size)
+
+
+class StageFn:
+    """``fn(params, x[, target])`` of one pipeline chunk: ``params`` a
+    dict of tensors named as the chunk module's state dict, run through
+    ``torch.func.functional_call``.  The module is made on the meta
+    device at first call, in the process that calls (a stage actor), so
+    the function pickles as its config and carries no weights.  The last
+    chunk returns the scalar CE loss against ``target``; the others their
+    output cast to ``boundary_dtype``."""
+
+    def __init__(self, module_cls, config, first: bool, last: bool,
+                 blocks: Tuple[int, int], boundary_dtype: torch.dtype,
+                 loss_fn: Callable):
+        self.module_cls, self.config = module_cls, config
+        self.first, self.last, self.blocks = first, last, tuple(blocks)
+        self.boundary_dtype, self.loss_fn = boundary_dtype, loss_fn
+        self._module = None
+
+    def __getstate__(self):
+        return dict(self.__dict__, _module=None)
+
+    def module(self) -> nn.Module:
+        if self._module is None:
+            with torch.device("meta"):
+                self._module = self.module_cls(self.config, self.first,
+                                               self.last, self.blocks)
+        return self._module
+
+    def __call__(self, params, x, target=None):
+        out = torch.func.functional_call(self.module(), params, (x,))
+        if self.last:
+            return self.loss_fn(out, target)
+        return out.to(self.boundary_dtype)
+
+
+class StageInit:
+    """``init()`` of one pipeline chunk: the chunk's parameters as a dict
+    of fp32 CPU tensors, drawn where it is called from a
+    ``torch.Generator`` seeded ``seed`` (the chunk's ``seed + c``)."""
+
+    def __init__(self, module_cls, config, first: bool, last: bool,
+                 blocks: Tuple[int, int], seed: int):
+        self.module_cls, self.config = module_cls, config
+        self.first, self.last, self.blocks = first, last, tuple(blocks)
+        self.seed = int(seed)
+
+    def __call__(self):
+        module = self.module_cls(self.config, self.first, self.last,
+                                 self.blocks)
+        module.init_params(torch.Generator().manual_seed(self.seed))
+        return {k: v.detach() for k, v in module.state_dict().items()}
+
+
+def split_module(module_cls, config, num_layers: int, head_cost: float,
+                 num_stages: int, virtual_per_rank: int,
+                 boundary_dtype: torch.dtype, seed: int, loss_fn: Callable):
+    """The ``split_stages`` of either LM family: ``num_stages *
+    virtual_per_rank`` chunks balanced by cost, as ``(stage_fns,
+    init_fns)`` in global chunk order."""
+    from ray_tpu_torch.models.pipeline_split import (balance_chunks,
+                                                     chunk_flags)
+
+    if num_stages < 1:
+        raise ValueError(f"num_stages must be >= 1, got {num_stages}")
+    n = num_stages * max(1, int(virtual_per_rank))
+    bounds = balance_chunks(num_layers, n, embed_cost=0.3,
+                            head_cost=head_cost)
+    stage_fns, init_fns = [], []
+    for k, (first, last) in enumerate(chunk_flags(n)):
+        stage_fns.append(StageFn(module_cls, config, first, last, bounds[k],
+                                 boundary_dtype, loss_fn))
+        init_fns.append(StageInit(module_cls, config, first, last,
+                                  bounds[k], seed + k))
+    return stage_fns, init_fns
+
+
+def split_stages(config: GPT2Config, num_stages: int, *,
+                 virtual_per_rank: int = 1,
+                 boundary_dtype: torch.dtype = torch.float32, seed: int = 0):
+    """Split a GPT-2 config into ``num_stages * virtual_per_rank``
+    pipeline chunks for
+    :class:`ray_tpu_torch.parallel.mpmd_pipeline.MPMDPipeline`.
+
+    Blocks are partitioned by cost (``models/pipeline_split.py``): the
+    LM head costs ``vocab/(12*hidden)`` block-equivalents, so the
+    head-owning chunk gets fewer blocks.  With ``virtual_per_rank=v`` the
+    chunks interleave over the stages (chunk c on stage ``c % S``).
+    Returns ``(stage_fns, init_fns)`` in global chunk order:
+    ``stage_fns[c](params, x[, target])`` (a :class:`StageFn`; the last
+    returns the scalar loss) and ``init_fns[c]()`` (a :class:`StageInit`)
+    building that chunk's parameters where it is called: run them on the
+    stage actors, so that an XL-scale chunk never visits the driver.
+    Activations cross chunk boundaries as ``boundary_dtype`` (fp32 by
+    default)."""
+    return split_module(GPT2Stage, config, config.num_layers,
+                        gpt2_head_cost(config), num_stages,
+                        virtual_per_rank, boundary_dtype, seed,
+                        _stage_ce_loss)

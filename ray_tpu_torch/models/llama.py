@@ -21,9 +21,9 @@ same logits:
 - the LM head runs in fp32 on the fp32 cast of the final norm's output,
   and the logits are fp32.
 
-``LlamaStage``, ``_stage_ce_loss`` and ``split_stages`` (the pipeline
-split of the JAX module) wait for the pipeline (ROADMAP Queue 1 item 8);
-``split_stages`` raises, naming it.
+``LlamaStage``, ``_stage_ce_loss`` and ``split_stages`` split the
+decoder into chunks for the MPMD pipeline (``parallel/mpmd_pipeline.py``),
+as the JAX module does.
 """
 from __future__ import annotations
 
@@ -34,7 +34,8 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from ray_tpu_torch.models.gpt2 import _dense, gpt2_loss_fn
+from ray_tpu_torch.models.gpt2 import (_dense, _lecun_normal_, gpt2_loss_fn,
+                                       split_module)
 from ray_tpu_torch.ops.attention import cached_attention, mha_attention
 
 
@@ -312,10 +313,79 @@ def llama_head_cost(config: LlamaConfig) -> float:
     return (config.vocab_size * config.hidden_size) / config.block_params
 
 
-def split_stages(config: LlamaConfig, num_stages: int, **kw):
-    """The pipeline split of a Llama (``LlamaStage`` chunks for the MPMD
-    pipeline) is not ported yet: it needs the pipeline, ROADMAP Queue 1
-    item 8."""
-    raise NotImplementedError(
-        "split_stages (LlamaStage chunks for the MPMD pipeline) needs the "
-        "pipeline, not ported yet (ROADMAP Queue 1 item 8)")
+class LlamaStage(nn.Module):
+    """One pipeline chunk of a split Llama (see :func:`split_stages`).
+
+    Chunk 0 owns the token embedding ``embed`` and takes ids; middle
+    chunks take and give hidden states; the last chunk owns
+    ``final_norm`` and the (untied) ``lm_head`` and gives fp32 logits.
+    Rope is positional-from-zero inside each block, so splitting changes
+    nothing about the attention.  The blocks keep their global index:
+    ``layers.{i}`` for ``i`` in ``range(*blocks)``, the names of
+    ``Llama``'s state dict."""
+
+    def __init__(self, config: LlamaConfig, first: bool, last: bool,
+                 blocks: Tuple[int, int]):
+        super().__init__()
+        c = config
+        self.config, self.first, self.last = c, first, last
+        self.blocks = tuple(blocks)
+        if first:
+            self.embed = nn.Parameter(torch.zeros(c.vocab_size,
+                                                  c.hidden_size))
+        self.layers = nn.ModuleDict({str(i): LlamaBlock(c)
+                                     for i in range(*self.blocks)})
+        if last:
+            self.final_norm = RMSNorm(c.hidden_size, c.rms_eps)
+            self.lm_head = nn.Linear(c.hidden_size, c.vocab_size,
+                                     bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.config
+        x = self.embed[x].to(c.dtype) if self.first else x.to(c.dtype)
+        rope = rope_tables(x.shape[1], c.head_dim, c.rope_theta, x.device)
+        for block in self.layers.values():
+            x = block(x, rope)
+        if self.last:
+            x = self.final_norm(x)
+            return F.linear(x.float(), self.lm_head.weight)
+        return x
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> None:
+        """flax's initializers (``nn.Embed`` and ``nn.Dense`` defaults),
+        drawn from ``generator`` in the order of ``named_parameters``:
+        normal(1/sqrt(hidden)) for ``embed``, ones for the RMSNorm
+        scales, lecun-normal for every Dense kernel."""
+        for name, p in self.named_parameters():
+            if name == "embed":
+                p.normal_(0.0, self.config.hidden_size ** -0.5,
+                          generator=generator)
+            elif name.endswith("norm.weight"):
+                p.fill_(1.0)
+            else:
+                _lecun_normal_(p, generator)
+
+
+def _stage_ce_loss(logits: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Next-token CE on a microbatch (the objective of ``llama_loss_fn``)."""
+    return F.cross_entropy(logits[:, :-1].flatten(0, 1),
+                           ids[:, 1:].flatten().long())
+
+
+def split_stages(config: LlamaConfig, num_stages: int, *,
+                 virtual_per_rank: int = 1,
+                 boundary_dtype: torch.dtype = torch.float32, seed: int = 0):
+    """Split a Llama config into ``num_stages * virtual_per_rank``
+    pipeline chunks for
+    :class:`ray_tpu_torch.parallel.mpmd_pipeline.MPMDPipeline`: the
+    contract of ``models/gpt2.py::split_stages`` (global chunk order, the
+    last chunk the loss, init functions run on the stage actors), with
+    the block cost model of GQA attention and the SwiGLU MLP
+    (:func:`llama_head_cost`).  The embedding pins to chunk 0 (stage 0),
+    the head to the last chunk (last stage), chunk c on stage
+    ``c % num_stages``."""
+    return split_module(LlamaStage, config, config.num_layers,
+                        llama_head_cost(config), num_stages,
+                        virtual_per_rank, boundary_dtype, seed,
+                        _stage_ce_loss)

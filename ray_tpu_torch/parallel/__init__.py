@@ -2,9 +2,11 @@
 dataflow substrate (``flow``), meshes as process groups with named axes
 (``mesh``), sharding rules (``sharding``), the ZeRO update (``zero``),
 the gang (``mesh_group``: ``MeshGroup``, ``StepPipeline``, ``gang_get``)
-elastic data parallelism (``elastic``) and sequence parallelism
-(``ring_attention``: ``ring_attention`` and ``ulysses_attention``), the
-last two loaded on first use.  The pipelines are ROADMAP Queue 1 item 8.
+elastic data parallelism (``elastic``), sequence parallelism
+(``ring_attention``: ``ring_attention`` and ``ulysses_attention``) and the
+pipelines (``pipeline``: the GPipe schedule over a ``pipe`` axis;
+``mpmd_pipeline``: ``MPMDPipeline``, stages in processes of their own),
+the last three loaded on first use.
 """
 from ray_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
@@ -39,6 +41,13 @@ from ray_tpu_torch.parallel.mesh_group import (  # noqa: F401
 def __getattr__(name):
     # elastic.py and ring_attention.py import torch at import time;
     # `import ray_tpu_torch.parallel` stays torch-free for CPU workers.
+    # mpmd_pipeline spawns actors on use: lazy as well.
+    if name in ("MPMDPipeline", "PipelineStage", "StageCore",
+                "mpmd_driver_sync_count", "stage_schedule",
+                "simulate_schedule"):
+        from ray_tpu_torch.parallel import mpmd_pipeline
+
+        return getattr(mpmd_pipeline, name)
     if name in ("ElasticMeshGroup", "LocalElastic", "build_elastic_step",
                 "reference_trajectory"):
         from ray_tpu_torch.parallel import elastic

@@ -89,6 +89,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.models.gpt2 import _lecun_normal_
 from ray_tpu_torch.exceptions import EngineClosedError, KVPoolExhaustedError
 from ray_tpu_torch.serve import prefix_cache as pc
 from ray_tpu_torch.serve.sampling import (
@@ -1541,14 +1542,6 @@ class NaiveLM:
                 if eos_id is not None and tok == eos_id:
                     break
         return out
-
-
-def _lecun_normal_(w: torch.Tensor, gen: torch.Generator):
-    """flax's lecun_normal: truncated normal (2 std) of variance
-    1/fan_in, for a torch Linear weight [out, in]."""
-    std = (1.0 / w.shape[1]) ** 0.5 / 0.87962566103423978
-    torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                generator=gen)
 
 
 def build_model(model_kind: str = "gpt2", config_kw: Optional[dict] = None,

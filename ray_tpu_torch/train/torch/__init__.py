@@ -4,6 +4,7 @@ torch_trainer.py)."""
 from ray_tpu_torch.train.base_trainer import DataParallelTrainer
 from ray_tpu_torch.train.torch.config import TorchConfig  # noqa: F401
 from ray_tpu_torch.train.torch.train_loop_utils import (  # noqa: F401
+    AsyncMetrics,
     adamw,
     compile_zero_step,
     get_mesh,

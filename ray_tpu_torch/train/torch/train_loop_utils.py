@@ -3,7 +3,8 @@
 
 ``adamw`` is the optimizer the JAX package's GPT-2 training step uses
 (``optax.adamw(3e-4)``), with optax's defaults; ``make_train_step`` is the
-counterpart of ``compile_donated_step``.  Nothing here picks a device:
+counterpart of ``compile_donated_step``; ``AsyncMetrics`` copies a step
+loop's metrics to the host every N steps.  Nothing here picks a device:
 the step runs where the model's parameters are.
 ``prepare_device_iterator`` is the Train loop's ingest: host batches
 moved to the device on a background thread (``data.prefetch``).
@@ -20,7 +21,7 @@ the optimizer's step.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Iterable
+from typing import Any, Callable, Iterable, Optional
 
 import torch
 
@@ -67,6 +68,65 @@ def make_train_step(model: torch.nn.Module,
         return loss.detach()
 
     return step
+
+
+class AsyncMetrics:
+    """Every-N metrics fetch for step loops (counterpart of the JAX
+    package's ``AsyncMetrics``).
+
+    ``push(step, metrics)`` keeps the latest step's metrics as they are
+    (device tensors, still being computed) and copies them to host floats
+    only every ``interval`` steps, so the loop does not wait for the
+    device each step.  ``last`` holds the latest host copy and
+    ``last_step`` its step; ``flush()`` forces the copy (the loop-end
+    barrier).  The copy is one device sync: every one-element tensor of a
+    dict is stacked on its device and moved to the host at once."""
+
+    def __init__(self, interval: int = 10):
+        self.interval = max(1, int(interval))
+        self._pending = None
+        self._pending_step = None
+        self.last: Optional[dict] = None
+        self.last_step: Optional[int] = None
+
+    def push(self, step: int, metrics: Any) -> Optional[dict]:
+        self._pending = metrics
+        self._pending_step = step
+        if step % self.interval == 0:
+            return self.flush()
+        return None
+
+    def flush(self) -> Optional[dict]:
+        if self._pending is None:
+            return self.last
+        self.last = _to_host_floats(self._pending)
+        self.last_step = self._pending_step
+        self._pending = None
+        return self.last
+
+
+def _to_host_floats(metrics: Any) -> Any:
+    """A dict's one-element tensors as floats (one stacked copy per
+    device), its other tensors as numpy arrays; anything else as it is."""
+    if not isinstance(metrics, dict):
+        if isinstance(metrics, torch.Tensor):
+            return metrics.detach().cpu().numpy()
+        return metrics
+    out = dict(metrics)
+    by_device: dict = {}
+    for k, v in metrics.items():
+        if isinstance(v, torch.Tensor):
+            if v.numel() == 1:
+                by_device.setdefault(v.device, []).append(k)
+            else:
+                out[k] = v.detach().cpu().numpy()
+        elif hasattr(v, "__float__"):
+            out[k] = float(v)
+    for keys in by_device.values():
+        host = torch.stack([metrics[k].detach().reshape(()).double()
+                            for k in keys]).cpu().tolist()
+        out.update(zip(keys, host))
+    return out
 
 
 def get_mesh(spec=None, group=None):

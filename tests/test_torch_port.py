@@ -10,6 +10,7 @@ import ast
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -87,16 +88,24 @@ def test_string_check_finds_a_copied_worker_command():
     assert [line for line, _ in _strings_naming_jax_modules(src)] == [2, 4]
 
 
-def test_entry_points_without_device_raise_when_there_is_no_cuda():
+def test_entry_points_without_device_raise_when_there_is_no_cuda(monkeypatch):
     from ray_tpu_torch import resolve_device
     from ray_tpu_torch.rllib import APPOConfig, IMPALAConfig, PPOConfig
     from ray_tpu_torch.serve import LLMEngine, LLMServer, NaiveLM, build_model
+    from ray_tpu_torch.parallel import MPMDPipeline, PipelineStage, StageCore
     from ray_tpu_torch.train import TorchPredictor
 
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         return
     cpu_model = build_model("gpt2", seed=0, device="cpu")
+    chunk = {"w": np.ones((3, 2), np.float32)}
+    # the stage actor's class sets its generation in the environment
+    monkeypatch.setenv("RTTP_MESH_GENERATION", "0")
+
+    def last(params, x, t):
+        return ((x @ params["w"] - t) ** 2).mean()
+
     calls = [lambda: resolve_device(), lambda: resolve_device("cuda"),
              lambda: build_model("gpt2", seed=0),
              lambda: LLMEngine(cpu_model, start=False),
@@ -112,7 +121,11 @@ def test_entry_points_without_device_raise_when_there_is_no_cuda():
                  num_envs=4, unroll_length=4).build(),
              lambda: PPOConfig().environment("StatelessCartPole-v1").anakin(
                  num_envs=4, unroll_length=4).training(
-                     model={"use_lstm": True}).build()]
+                     model={"use_lstm": True}).build(),
+             lambda: StageCore([last], [chunk]),
+             # the stage actor's class, built in this process
+             lambda: PipelineStage._cls([last], [chunk]),
+             lambda: MPMDPipeline([last], [chunk], num_microbatches=1)]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
             call()

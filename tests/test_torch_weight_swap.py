@@ -301,14 +301,16 @@ def _one_request(server):
 # The Serve entry points are ported: in-process, generate_batch answers
 # (token lists with as_refs=False), autoscale_metric reads an idle engine
 # as 0, and generate_many, the object-plane client, needs the runtime.
-# Llama's pipeline stages are still left out and raise naming their item.
+# Llama's pipeline split is ported: two stages give two chunks, the
+# blocks split by cost.
 @pytest.mark.parametrize("call,want", [
     (lambda s: s.generate_batch([[1, 2]], 2, as_refs=False), _one_request),
     (lambda s: s.autoscale_metric(), lambda s: 0.0),
     (lambda s: generate_many(None, [[1, 2]]),
      (RuntimeError, r"init\(\) has not been called")),
-    (lambda s: llama_split_stages(LlamaConfig.tiny(), 2),
-     (NotImplementedError, "Queue 1 item 8")),
+    (lambda s: [f.blocks for f in
+                llama_split_stages(LlamaConfig.tiny(), 2)[0]],
+     lambda s: [(0, 1), (1, 2)]),
 ], ids=["generate_batch", "autoscale_metric", "generate_many", "llama"])
 def test_left_out_entry_points_raise_naming_their_item(call, want):
     server = LLMServer("gpt2", {"dtype": torch.float32}, seed=0,
